@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of the iMARS serving path, for NVIDIA Hopper (sm_90a).
+
+A second package beside the JAX reference (`repro`). It serves the frozen
+YoutubeDNN engine end to end: `serving.recsys_engine.RecSysEngine.build`
+-> `serve` / `filter_stage` / `rank_stage`. The three kernels of that path
+(dense Hamming distances, the streaming fixed-radius NNS and the int8
+embedding pool) are CUDA C++ under `kernels/csrc`, built with `nvcc` at
+first use (`kernels/build.py`) and bound with `ctypes`.
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; a CPU
+tensor goes to each kernel's plain PyTorch version (`kernels/ref.py`).
+Importing the package builds nothing and imports neither `jax`, `repro`
+nor `triton`.
+"""
+from repro_torch.utils import resolve_device
+
+__all__ = ["resolve_device"]

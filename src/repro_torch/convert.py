@@ -1,0 +1,68 @@
+"""Carry weights and engine state from the JAX reference into the port.
+
+`jax.random` draws cannot be reproduced with PyTorch, so parity runs take
+the parameters, the LSH projection and the built engine's arrays from the
+reference as numpy arrays (the exporter that calls `np.asarray` on a
+`repro` engine lives in the tests). Packed signatures may come as uint32;
+they are viewed as int32 holding the same bits.
+"""
+from __future__ import annotations
+
+from repro_torch.core.nns import BlockSummary
+from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.models.recsys import YoutubeDNNConfig
+from repro_torch.serving.hot_cache import HotRowCache
+from repro_torch.serving.recsys_engine import RecSysEngine
+from repro_torch.utils import resolve_device, to_device
+
+
+def params_from_numpy(tree, device=None):
+    """The reference's parameter pytree (dicts/lists of numpy arrays) as
+    the same structure of tensors on `device` (default `cuda`)."""
+    return to_device(tree, resolve_device(device))
+
+
+def engine_from_arrays(*, cfg, params, tables_q: dict, item_table_q,
+                       genre_table_q, item_sigs, lsh_proj, item_hot,
+                       uiet_hot: dict, block_summary=None,
+                       radius: int = 96, n_candidates: int = 50,
+                       top_k: int = 10, scan_block: int | None = None,
+                       prune: bool | None = None,
+                       device=None) -> RecSysEngine:
+    """A port engine from a built reference engine's exported arrays.
+
+    tables_q / item_table_q / genre_table_q: (values int8, scales f32)
+    pairs (tables_q a dict by feature); item_sigs: (n, words) uint32 or
+    int32; item_hot / uiet_hot: (hot_ids, hot_rows) pairs (uiet_hot a
+    dict); block_summary: dict of ``or_sigs``, ``and_sigs``, ``min_pc``,
+    ``max_pc``, ``n_alive`` and ``block_rows``, or None; cfg: a config
+    with the reference's fields.
+    """
+    device = resolve_device(device)
+
+    def qt(pair):
+        return QuantizedTensor(values=to_device(pair[0], device),
+                               scales=to_device(pair[1], device))
+
+    def hot(pair):
+        ids = to_device(pair[0], device)
+        return HotRowCache(hot_ids=ids, hot_rows=to_device(pair[1], device),
+                           capacity=int(ids.shape[0]))
+
+    summary = None
+    if block_summary is not None:
+        summary = BlockSummary(
+            **{f: to_device(block_summary[f], device) for f in
+               ("or_sigs", "and_sigs", "min_pc", "max_pc", "n_alive")},
+            block_rows=int(block_summary["block_rows"]))
+    cfg = YoutubeDNNConfig(**{**cfg._asdict(), "user_features": dict(
+        cfg.user_features)})
+    return RecSysEngine(
+        cfg=cfg, tables_q={k: qt(v) for k, v in tables_q.items()},
+        item_table_q=qt(item_table_q), genre_table_q=qt(genre_table_q),
+        item_sigs=to_device(item_sigs, device),
+        params=params_from_numpy(params, device),
+        lsh_proj=to_device(lsh_proj, device), item_hot=hot(item_hot),
+        uiet_hot={k: hot(v) for k, v in uiet_hot.items()},
+        block_summary=summary, radius=radius, n_candidates=n_candidates,
+        top_k=top_k, scan_block=scan_block, prune=prune)

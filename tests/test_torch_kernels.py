@@ -1,0 +1,312 @@
+"""The port's kernel layer (`repro_torch.kernels`) against the JAX reference.
+
+The same numpy inputs go through `repro`'s kernels — the jnp oracles and
+the Pallas kernels in interpret mode, as `tests/test_kernels.py` runs them
+— and through the port's ops on CPU tensors, which take the plain PyTorch
+versions. Integer outputs must be equal bit for bit. `embedding_pool`
+sums in another order than `jnp.einsum`: reordering a float32 sum of L
+terms moves it by at most about L * 2**-24 of the sum of the terms'
+magnitudes, so each output is held to 1e-6 of that magnitude sum (L <= 20).
+
+The CUDA kernels themselves are held against these plain versions on the
+card by `tests/test_torch_cuda.py`.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import streaming_nns as jsnn
+from repro.kernels.embedding_pool import embedding_pool_pallas
+from repro.kernels.hamming_nns import hamming_distances_pallas
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import streaming_nns as tsnn
+
+POOL_RTOL = 1e-6
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _sigs(rng, n, words):
+    return rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+
+
+def _t(a):
+    """numpy (uint32 signatures viewed as int32) -> CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Hamming distances
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("q,n,words", [(5, 300, 8), (9, 1030, 8), (3, 77, 2)])
+def test_hamming_matches_reference(q, n, words):
+    rng = np.random.default_rng(q * n)
+    queries, db = _sigs(rng, q, words), _sigs(rng, n, words)
+    got = _np(ops.hamming_distances(_t(queries), _t(db)))
+    want_ref = np.asarray(jref.hamming_distance_ref(jnp.asarray(queries),
+                                                    jnp.asarray(db)))
+    want_pallas = np.asarray(hamming_distances_pallas(
+        jnp.asarray(queries), jnp.asarray(db),
+        block_n=jops._hamming_block_n(n), interpret=True))
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_pallas)
+    assert got.dtype == np.int32
+
+
+def test_popcount_covers_every_bit_pattern_class():
+    words = np.array([0, 1, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0xAAAAAAAA,
+                      0x0F0F0F0F, 123456789], np.uint32)
+    want = [bin(int(w)).count("1") for w in words]
+    assert ref.popcount32(_t(words)).tolist() == want
+
+
+# ---------------------------------------------------------------------------
+# embedding pool
+# ---------------------------------------------------------------------------
+def _assert_pool_close(got, want, values, scales, ids, w):
+    """|got - want| <= POOL_RTOL * (the pooled magnitudes of the terms)."""
+    mag = _np(ref.embedding_pool_ref(
+        _t(np.abs(values.astype(np.int16)).astype(np.int8)), _t(scales),
+        _t(ids), None if w is None else _t(np.abs(w))))
+    np.testing.assert_array_less(np.abs(got - want), POOL_RTOL * mag + 1e-12)
+
+
+def _table(rng, n, d):
+    values = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    scales = (rng.random((n, 1)) * 0.01 + 1e-4).astype(np.float32)
+    return values, scales
+
+
+@pytest.mark.parametrize("n,d,B,L,weighted", [
+    (18, 32, 7, 1, False), (300, 32, 6, 20, True), (300, 32, 6, 20, False),
+    (50, 64, 3, 5, True)])
+def test_embedding_pool_matches_reference(n, d, B, L, weighted):
+    rng = np.random.default_rng(n + B + L)
+    values, scales = _table(rng, n, d)
+    ids = rng.integers(-1, n, size=(B, L)).astype(np.int32)
+    ids[0, :] = -1  # an all-padding bag pools to zero
+    w = (rng.normal(size=(B, L)).astype(np.float32) if weighted else None)
+    got = _np(ops.embedding_pool(_t(values), _t(scales), _t(ids),
+                                 None if w is None else _t(w)))
+    jargs = (jnp.asarray(values), jnp.asarray(scales), jnp.asarray(ids),
+             None if w is None else jnp.asarray(w))
+    want_ref = np.asarray(jref.embedding_pool_ref(*jargs))
+    want_pallas = np.asarray(jops._embedding_pool_pallas(*jargs,
+                                                         interpret=True))
+    _assert_pool_close(got, want_ref, values, scales, ids, w)
+    _assert_pool_close(got, want_pallas, values, scales, ids, w)
+    np.testing.assert_array_equal(got[0], 0.0)
+    if L == 1 and w is None:  # one term per output: exactly the reference
+        np.testing.assert_array_equal(got, want_ref)
+
+
+def test_embedding_pool_raw_pallas_call_agrees():
+    rng = np.random.default_rng(5)
+    values, scales = _table(rng, 40, 32)
+    ids = rng.integers(-1, 40, size=(4, 3)).astype(np.int32)
+    got = _np(ops.embedding_pool(_t(values), _t(scales), _t(ids)))
+    want = np.asarray(embedding_pool_pallas(
+        jnp.asarray(values), jnp.asarray(scales), jnp.asarray(ids),
+        jnp.asarray((ids >= 0).astype(np.float32)), interpret=True))
+    _assert_pool_close(got, want, values, scales, ids, None)
+
+
+# ---------------------------------------------------------------------------
+# streaming NNS: key helpers, merge, and all four variants
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("words", [1, 2, 8])
+def test_key_helpers_match_reference(words):
+    assert tsnn.key_shift(words) == jsnn.key_shift(words)
+    assert tsnn.big_key(words) == jsnn.big_key(words)
+    assert tsnn.max_streamable_items(words) == \
+        jsnn.max_streamable_items(words)
+    assert tsnn.BIG_DIST == jsnn.BIG_DIST
+    for block_n, sb in [(1, None), (128, 1000), (512, 4096)]:
+        assert tsnn.superblock_rows(words, block_n, sb) == \
+            jsnn.superblock_rows(words, block_n, sb)
+    d = np.array([0, 5, 32 * words], np.int32)
+    r = np.array([0, 77, tsnn.max_streamable_items(words) - 1], np.int32)
+    key = tsnn.pack_key(_t(d), _t(r), words)
+    np.testing.assert_array_equal(_np(key), np.asarray(
+        jsnn.pack_key(jnp.asarray(d), jnp.asarray(r), words)))
+    back = tsnn.unpack_key(key, words)
+    np.testing.assert_array_equal(_np(back[0]), d)
+    np.testing.assert_array_equal(_np(back[1]), r)
+
+
+def test_superblock_rows_rejects_sub_block():
+    with pytest.raises(ValueError):
+        tsnn.superblock_rows(8, 512, 100)
+
+
+def test_merge_buffers_match_reference():
+    rng = np.random.default_rng(2)
+    bufs = []
+    for s in range(3):  # ascending disjoint row ranges, sorted buffers
+        dist = np.sort(rng.integers(0, 6, size=(4, 5)), axis=1)
+        idx = s * 100 + np.argsort(rng.random((4, 5)), axis=1)
+        idx = np.take_along_axis(idx, np.argsort(dist, 1, kind="stable"), 1)
+        dist[:, -1] = tsnn.BIG_DIST
+        idx[:, -1] = -1
+        bufs.append((idx.astype(np.int32), dist.astype(np.int32)))
+    got = tsnn.merge_chunk_buffers([(_t(i), _t(d)) for i, d in bufs], 7)
+    want = jsnn.merge_chunk_buffers(
+        [(jnp.asarray(i), jnp.asarray(d)) for i, d in bufs], 7)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+    with pytest.raises(ValueError):
+        tsnn.merge_chunk_buffers([], 7)
+
+
+def _stream_case(rng, masked, pruned, n=700, q=6, words=8, br=128):
+    """Clustered DB (so pruning skips blocks) + optional mask / prune."""
+    centers = _sigs(rng, n // br + 1, words)
+    db = np.repeat(centers, br, axis=0)[:n].copy()
+    flips = rng.integers(0, 2, size=db.shape, dtype=np.uint32) & \
+        np.uint32(0x00010001)
+    db ^= flips
+    queries = centers[rng.integers(0, centers.shape[0], q)]
+    kw = {}
+    if masked:
+        kw["db_mask"] = rng.random(n) < 0.8
+    if pruned:
+        from repro.core.nns import _prune_mask, build_block_summary
+
+        summary = build_block_summary(db, br, db_mask=kw.get("db_mask"))
+        prune, _ = _prune_mask(jnp.asarray(queries), summary, 40)
+        kw["prune_blocks"] = np.asarray(prune)
+        kw["prune_block_rows"] = br
+        assert kw["prune_blocks"].any()  # the case really prunes
+    return queries, db, kw
+
+
+@pytest.mark.parametrize("masked,pruned,superblock", [
+    (False, False, None), (True, False, None), (False, True, None),
+    (True, True, None), (True, True, 256)])
+def test_streaming_nns_matches_reference(masked, pruned, superblock):
+    rng = np.random.default_rng(int(masked) * 2 + int(pruned))
+    queries, db, kw = _stream_case(rng, masked, pruned)
+    radius, K = 40, 16
+    tkw = {k: (_t(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    got = ops.streaming_nns(_t(queries), _t(db), radius=radius,
+                            max_candidates=K, scan_block=96, n_valid=650,
+                            superblock=superblock, **tkw)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    jq, jdb = jnp.asarray(queries), jnp.asarray(db)
+    want_ref = jref.streaming_nns_ref(jq, jdb, radius, K, scan_block=96,
+                                      n_valid=650, superblock=superblock,
+                                      **jkw)
+    want_pallas = jops._streaming_nns_pallas(
+        jq, jdb, radius=radius, max_candidates=K, scan_block=128,
+        n_valid=650, superblock=superblock, interpret=True, **jkw)
+    for g, wr, wp in zip(got, want_ref, want_pallas):
+        np.testing.assert_array_equal(_np(g), np.asarray(wr))
+        np.testing.assert_array_equal(_np(g), np.asarray(wp))
+    assert int(got[2].sum()) > 0  # the case has matches
+
+
+def test_split_layout_aligns_and_covers():
+    for n in (1, 300, 4096, 1 << 20, (1 << 20) + 5):
+        for q in (1, 16, 256):
+            for pbr in (None, 128, 4096):
+                for sb in (None, 2048):
+                    rows, splits = tsnn.split_layout(
+                        n, q, 132, prune_block_rows=pbr, superblock=sb)
+                    align = pbr or tsnn.CUDA_SPLIT_ALIGN
+                    assert rows % align == 0 and rows >= align
+                    assert splits * rows >= n > (splits - 1) * rows
+                    if sb is not None:
+                        assert rows <= max(align, sb)
+
+
+# ---------------------------------------------------------------------------
+# routing, build and import hygiene (no GPU needed)
+# ---------------------------------------------------------------------------
+def test_override_values_are_checked(monkeypatch):
+    x = torch.zeros((1, 8), dtype=torch.int32)
+    monkeypatch.setenv("REPRO_TORCH_HAMMING_DISTANCES", "torch")
+    assert not ops.use_kernel("hamming_distances", x)
+    monkeypatch.setenv("REPRO_TORCH_HAMMING_DISTANCES", "pallas")
+    with pytest.raises(ValueError):
+        ops.hamming_distances(x, x)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    build.reset_launches()
+    x = torch.zeros((2, 8), dtype=torch.int32)
+    ops.hamming_distances(x, x)
+    ops.streaming_nns(x, x, radius=3, max_candidates=2)
+    assert set(build.launch_counts().values()) == {0}
+
+
+def test_build_compiles_each_source_once_per_content(tmp_path, monkeypatch):
+    """A fake `nvcc` stands in for the real one: every source compiles in
+    its own process into a content-addressed library, an unchanged source
+    is not rebuilt, and a failing compile raises with its log."""
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    log = tmp_path / "calls"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ $# -gt 1 ]; do [ \"$1\" = -o ] && out=$2; "
+                    "shift; done\n"
+                    "[ -n \"$FAIL\" ] && { echo boom; exit 3; }\n"
+                    "touch \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    kernels = [build.CudaKernel(k.name, k.source.name, k.argtypes)
+               for k in build.KERNELS]
+    monkeypatch.setattr(build.CudaKernel, "_load", lambda self: None)
+    build.build_all(kernels)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 3
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    for k in kernels:
+        path = k.library_path()
+        assert path.exists() and path.parent == tmp_path / "out"
+        assert path.name.startswith(k.source.stem + "-")
+    build.build_all(kernels)  # libraries exist: nothing recompiles
+    assert len(log.read_text().splitlines()) == 3
+    monkeypatch.setenv("FAIL", "1")
+    for k in kernels:
+        k.library_path().unlink()
+    with pytest.raises(RuntimeError, match="boom"):
+        build.build_all(kernels[:1])
+    assert list((tmp_path / "out").iterdir()) == []  # no partial library
+
+
+def test_sources_carry_their_notes():
+    for k in build.KERNELS:
+        text = k.source.read_text()
+        assert k.source.exists() and f"REPRO_API int {k.name}(" in text
+        for note in ("Replaces:", "Bound on the H100:", "Design:"):
+            assert note in text, (k.source.name, note)
+
+
+def test_import_builds_nothing_and_needs_no_jax():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.kernels.ops, repro_torch.serving.recsys_engine\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'triton')]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "REPRO_TORCH_BUILD_DIR": "/nonexistent/never-created"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
