@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--record PATH]
 
-1. Builds the three CUDA kernels from `src/repro_torch/kernels/csrc`.
+1. Builds the five CUDA kernels from `src/repro_torch/kernels/csrc`.
 2. Phase A: the paper's YoutubeDNN/MovieLens engine (3000 items, seeded
    random weights, 128 hot rows per table) serves 256-query batches through
    `RecSysEngine.serve` on the dense plan (Hamming kernel + stable top-K).
@@ -15,13 +15,32 @@
    finite scores, equality with the plain PyTorch versions on the card
    (`REPRO_TORCH_<OP>=torch`), and the NNS candidates of a CPU engine
    built from the same weights, given the card's query signatures.
-4. Phase C: each kernel against its plain version on the card at the
+4. Phase D: Qwen3-8B at full width and all 36 layers in bfloat16 (random
+   weights from a seeded CUDA generator), batch 4, 2048 prompt tokens, 16
+   generated, int8 KV cache. D.1 `LMServingEngine.generate`, the entry
+   point as it stands (blocked prefill, no kernel); D.2 `prefill` with
+   `attn_impl="flash"`, whose flash kernel must launch once per layer,
+   whose layer-0 int8 cache must equal the blocked prefill's, and whose
+   last-token logits must agree with it (max |diff| <= 5% of each row's
+   spread; greedy token within 5% of the spread of the max); D.3 15
+   teacher-forced `decode_step`s from the flash cache (finite logits; the
+   token D.1 chose next within 5% of the spread of the max); D.4 the public
+   `ops.int8_matmul` at `kernel_bench`'s 256x512x512 and at the MLP
+   up-projection of the prompt tokens (8192x4096x12288, activations and
+   weights quantized per row / column), within 5% of the bf16 product.
+   Then `torch.profiler` traces one blocked prefill, one flash prefill and
+   one decode step: kernels run, device time, and the idle share.
+5. Phase C: each kernel against its plain version on the card at the
    phases' shapes (the streaming kernel also masked, unpruned, with a
-   `superblock` override and against the dense plan); integer outputs must
-   be equal, float outputs within 1e-5 relative. Kernel times are
-   CUDA-event means over back-to-back launches queued behind a spin (warm
-   L2, as in the serve loop); the wall time per call, host included, goes
-   to the record as `call_ms`.
+   `superblock` override and against the dense plan; flash also in float32
+   with a ragged kv length and `q_offset`); integer outputs and the int8
+   matmul must be equal, the pool within 1e-5 relative, flash within 2e-2
+   (bf16) and 2e-5 (f32). Kernel times are CUDA-event means over
+   back-to-back launches queued behind a spin (warm L2, as in the serve
+   loop); the wall time per call, host included, goes to the record as
+   `call_ms`. `library_ms` times one PyTorch call of the same function
+   where there is one (`scaled_dot_product_attention`; `torch._int_mm`
+   and the two scale multiplies); the port never calls either.
 
 Prints one line per kernel, the card's name and power limit, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
@@ -42,6 +61,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -51,6 +71,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # upper bound on the rate of integer XOR / popcount / add (Hopper executes
 # popcount at a lower rate, so the true bound is higher than this one)
 CUDA_CORE_OPS_PER_S = 67e12
+# dense tensor-core peaks (data sheet, SXM part): what the attention flops
+# and the int8 products are bounded by
+BF16_TC_FLOPS = 989e12
+INT8_TC_OPS = 1979e12
 BATCH = 256
 N_BATCHES_A = 4
 N_BATCHES_B = 3
@@ -59,6 +83,20 @@ HOT_ROWS = 128
 POOL_RTOL = 1e-5
 # ~50 ms of GPU clock: longer than the host takes to queue a timing loop
 SPIN_CYCLES = 100_000_000
+# phase D: Qwen3-8B serving, and the tolerances of its comparisons
+LM_ARCH = "qwen3-8b"
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_GEN = 16
+SPREAD_FRAC = 0.05  # tests/test_serving.py's gap criterion
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# (name, bh, sq, sk, d, dtype, q_offset): phase D's attention (32 heads x
+# batch 4), then float32 with a ragged kv length and the causal offset
+FLASH_CASES = (("phase D", 128, 2048, 2048, 128, torch.bfloat16, 0),
+               ("f32 ragged", 8, 300, 1000, 128, torch.float32, 700))
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 def fail(msg: str) -> None:
@@ -81,7 +119,8 @@ def card_line() -> str:
 def plain_versions():
     """Route every kernel op to its plain PyTorch version on the card."""
     names = [f"REPRO_TORCH_{op}" for op in
-             ("HAMMING_DISTANCES", "EMBEDDING_POOL", "STREAMING_NNS")]
+             ("HAMMING_DISTANCES", "EMBEDDING_POOL", "STREAMING_NNS",
+              "FLASH_ATTENTION", "INT8_MATMUL")]
     old = {k: os.environ.get(k) for k in names}
     os.environ.update({k: "torch" for k in names})
     try:
@@ -173,9 +212,10 @@ def call_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
@@ -280,6 +320,273 @@ def cpu_reference_check(params, cfg, proj, gpu_engine, batch, rs_mod):
     return {"u_max_abs_err": err, "query_sig_word_agreement": agree}
 
 
+# ---------------------------------------------------------------------------
+# phase D: Qwen3-8B prefill and decode
+# ---------------------------------------------------------------------------
+def synced_ms(fn):
+    """(result, host-clock ms) of `fn`, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def gap_frac(logits: torch.Tensor, tok: torch.Tensor) -> float:
+    """Largest over rows of (max logit - logit of `tok`) / (max - min):
+    tests/test_serving.py's criterion passes at <= 0.05."""
+    lf = logits.float()
+    top = lf.max(-1).values
+    spread = top - lf.min(-1).values
+    gap = top - lf.gather(-1, tok[:, None].long())[:, 0]
+    return float((gap / spread).max())
+
+
+def device_profile(fn) -> dict:
+    """One run of `fn` under `torch.profiler`: the CUDA kernels it ran,
+    their summed device time, the wall time and the device's idle share
+    of it, and the five kernels that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy_ms = sum(sum(v) for v in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    return {"kernels": sum(len(v) for v in by_name.values()),
+            "device_ms": busy_ms, "wall_ms": wall_ms,
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "top": [(name[:80], len(v), sum(v) / 1e3) for name, v in top]}
+
+
+def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
+    """Phase D; returns its record and the int8 operands it drove. After
+    the checked runs it profiles a blocked prefill, a flash prefill and a
+    decode step (device time and idle share, into the record)."""
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.quantization import quantize_rowwise
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import engine as lm
+
+    bundle = get_arch(LM_ARCH)
+    cfg = bundle.model
+    cache_dtype = bundle.parallel.kv_cache_dtype
+    check(cache_dtype == "int8", f"{LM_ARCH} cache dtype {cache_dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, init_ms = synced_ms(lambda: tf.init_params(cfg, gen, device))
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+
+    walk(params)
+    rec = {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "cache_dtype": cache_dtype, "init_ms": init_ms,
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves),
+           "n_params": sum(t.numel() for t in leaves),
+           "param_count_dense": param_count_dense(cfg)}
+    check(all(t.device.type == "cuda" for t in leaves), "params off card")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+    batch = {"tokens": prompt}
+    cache_len = LM_PROMPT + LM_GEN + 4  # as launch/serve.py
+    engine = lm.LMServingEngine(params, cfg, batch=LM_BATCH,
+                                cache_len=cache_len, cache_dtype=cache_dtype)
+
+    # D.1: the entry point as it stands (blocked prefill, no kernel)
+    ops.reset_launches()
+    res, rec["generate_cold_ms"] = synced_ms(
+        lambda: engine.generate(batch, LM_GEN))
+    check(set(ops.launch_counts().values()) == {0},
+          f"blocked generate launched a kernel: {ops.launch_counts()}")
+    toks = res.tokens
+    check(toks.shape == (LM_BATCH, LM_GEN), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generated token out of range")
+    res2, gen_ms = synced_ms(lambda: engine.generate(batch, LM_GEN))
+    rec.update(generate_ms=gen_ms,
+               tokens_per_s=LM_BATCH * LM_GEN / gen_ms * 1e3,
+               generate_repeat_equal=bool((res2.tokens == toks).all()))
+
+    # D.2: blocked and flash prefill of the same prompt
+    kw = dict(cache_len=cache_len, cache_dtype=cache_dtype)
+    pre_b, rec["prefill_blocked_ms"] = synced_ms(
+        lambda: lm.prefill(params, cfg, batch, attn_impl="blocked", **kw))
+    lb = pre_b.logits[:, -1].float()
+    check(bool(torch.isfinite(lb).all()), "blocked prefill logits")
+    lm.prefill(params, cfg, batch, attn_impl="flash", **kw)  # warm-up
+    ops.reset_launches()
+    pre_f, rec["prefill_flash_ms"] = synced_ms(
+        lambda: lm.prefill(params, cfg, batch, attn_impl="flash", **kw))
+    launches = ops.launch_counts()
+    rec["launches"] = launches
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash prefill launches {launches}")
+    check(sum(launches.values()) == cfg.n_layers,
+          f"flash prefill launched other kernels: {launches}")
+    for f in pre_b.caches._fields:
+        check(torch.equal(getattr(pre_f.caches, f)[0],
+                          getattr(pre_b.caches, f)[0]),
+              f"layer 0 cache {f} differs between flash and blocked")
+    lf = pre_f.logits[:, -1].float()
+    check(bool(torch.isfinite(lf).all()), "flash prefill logits")
+    spread = lb.max(-1).values - lb.min(-1).values
+    diff = (lf - lb).abs().max(-1).values
+    rec["prefill_logit_diff_frac"] = float((diff / spread).max())
+    check(rec["prefill_logit_diff_frac"] <= SPREAD_FRAC,
+          f"flash vs blocked logits {rec['prefill_logit_diff_frac']:.4f} "
+          f"of the spread")
+    rec["prefill_gap_frac"] = gap_frac(lb, lf.argmax(-1))
+    check(rec["prefill_gap_frac"] <= SPREAD_FRAC,
+          f"flash greedy token gap {rec['prefill_gap_frac']:.4f}")
+    rec["prefill_argmax_equal"] = bool(
+        (lf.argmax(-1) == lb.argmax(-1)).all())
+
+    # D.3: teacher-forced decode from the flash prefill's cache
+    tok = torch.from_numpy(toks).to(device)
+    caches, step_ms, gaps = pre_f.caches, [], []
+    for t in range(LM_GEN - 1):
+        out, ms = synced_ms(lambda: lm.decode_step(
+            params, cfg, {"tokens": tok[:, t:t + 1]}, caches, LM_PROMPT + t))
+        caches = out.caches
+        logits = out.logits[:, -1]
+        check(bool(torch.isfinite(logits).all()), f"decode {t} logits")
+        gaps.append(gap_frac(logits, tok[:, t + 1]))
+        check(gaps[-1] <= SPREAD_FRAC, f"decode {t}: the generated token "
+              f"is {gaps[-1]:.4f} of the spread below the max")
+        step_ms.append(ms)
+    rec.update(decode_ms_per_step=sum(step_ms) / len(step_ms),
+               decode_ms_steps=step_ms, decode_gap_frac_max=max(gaps))
+    step = LM_PROMPT + LM_GEN - 1  # a cache row not written yet
+    rec["profile"] = {
+        "prefill_blocked": device_profile(lambda: lm.prefill(
+            params, cfg, batch, attn_impl="blocked", **kw)),
+        "prefill_flash": device_profile(lambda: lm.prefill(
+            params, cfg, batch, attn_impl="flash", **kw)),
+        "decode_step": device_profile(lambda: lm.decode_step(
+            params, cfg, {"tokens": tok[:, -1:]}, caches, step))}
+
+    # D.4: the public int8 matmul op, at kernel_bench's shape and at the
+    # MLP up-projection of the prompt's tokens
+    xs_rng = np.random.default_rng(seed + 3)
+    small = (torch.from_numpy(xs_rng.integers(-127, 128, (256, 512))
+                              .astype(np.int8)).to(device),
+             torch.from_numpy(xs_rng.integers(-127, 128, (512, 512))
+                              .astype(np.int8)).to(device),
+             torch.ones((256, 1), device=device),
+             torch.ones((1, 512), device=device))
+    hidden = pre_f.hidden.reshape(-1, cfg.d_model)
+    w = params["layers"]["mlp"]["wi"]["w"][cfg.n_layers - 1]
+    xq = quantize_rowwise(hidden.float())  # per token
+    wq = quantize_rowwise(w.float().T)  # per output column
+    big = (xq.values, wq.values.T.contiguous(), xq.scales, wq.scales.T)
+    ops.reset_launches()
+    y_small = ops.int8_matmul(*small)
+    y = ops.int8_matmul(*big)
+    torch.cuda.synchronize()
+    rec["int8_launches"] = ops.launch_counts()["int8_matmul"]
+    check(rec["int8_launches"] == 2, f"int8 launches {ops.launch_counts()}")
+    check(bool(torch.isfinite(y_small).all()), "int8 small output")
+    want = hidden.float() @ w.float()
+    rec["int8_rel_err_vs_bf16"] = float((y - want).norm() / want.norm())
+    check(rec["int8_rel_err_vs_bf16"] < 0.05,
+          f"int8 up-projection {rec['int8_rel_err_vs_bf16']:.4f} from bf16")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return rec, {"small": small, "big": big}
+
+
+def flash_entries(gen, device, ops, ref, launches: int):
+    """Phase C for the flash kernel: phase D's shape (bf16) and a float32
+    case with a ragged kv length and q_offset."""
+    errs, entry = {}, None
+    for name, bh, sq, sk, d, dt, off in FLASH_CASES:
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device=device)
+                   .to(dt) for s in (sq, sk, sk))
+        kw = dict(causal=True, scale=d**-0.5, q_offset=off)
+        got = ops._flash_cuda(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash kernel ({name}) != plain: max abs err {err}")
+        errs[name] = err
+        if entry is not None:
+            continue
+        rows = torch.arange(sq, device=device) + off
+        pairs = int((rows + 1).clamp(0, sk).sum())  # causal (row, key)
+        bnd, by = bound(4 * bh * sq * d * q.element_size(),
+                        4 * d * bh * pairs, BF16_TC_FLOPS)
+        q4, k4, v4 = (t.view(4, bh // 4, -1, d) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        entry = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:140",
+            "launches": launches, "max_abs_err": err,
+            "ms": timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 5),
+            "call_ms": call_ms(lambda: ops._flash_cuda(q, k, v, **kw), 5),
+            "plain_ms": timed_ms(
+                lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 10),
+            "library_max_abs_err": float(
+                (lib.reshape(got.shape).float() - want.float()).abs().max()),
+            "shape": f"bh={bh} sq={sq} sk={sk} d={d} {dt} causal"}
+    entry["case_errs"] = errs
+    return entry
+
+
+def int8_entry(operands: dict, ops, ref, launches: int):
+    """Phase C for the int8 matmul: bit-equal at both shapes; timed at the
+    MLP up-projection."""
+    for name, args in operands.items():
+        got = ops._int8_matmul_cuda(*args)
+        check(torch.equal(got, ref.int8_matmul_ref(*args)),
+              f"int8_matmul kernel ({name}) != plain")
+    x, w, sx, sw = operands["big"]
+    m, k = x.shape
+    n = w.shape[1]
+    bnd, by = bound(m * k + k * n + 4 * (m + n) + 4 * m * n, 2 * m * n * k,
+                    INT8_TC_OPS)
+    got = ops._int8_matmul_cuda(x, w, sx, sw)
+
+    def library():
+        return (torch._int_mm(x, w).float() * sx) * sw
+
+    return {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:76",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": timed_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 3),
+        "call_ms": call_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 3),
+        "plain_ms": timed_ms(lambda: ref.int8_matmul_ref(x, w, sx, sw), 2),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": timed_ms(library, 10),
+        "library_equal": bool(torch.equal(library(), got)),
+        "small_ms": timed_ms(
+            lambda: ops._int8_matmul_cuda(*operands["small"]), 50),
+        "shape": f"m={m} k={k} n={n}"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -380,6 +687,30 @@ def main(argv=None) -> int:
           f"blocks touched {b['blocks_touched_mean']:.1f} of "
           f"{b['summary_blocks']}, cache {b['cache']}, "
           f"stages {b['stage_ms']}", flush=True)
+
+    # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
+    lm_rec, int8_operands = lm_phase(args.seed, device, ops)
+    torch.cuda.empty_cache()
+    print(f"phase D ({LM_ARCH}, {lm_rec['layers']} layers, bf16, batch "
+          f"{LM_BATCH}, prompt {LM_PROMPT}, int8 cache; {card}): weights "
+          f"{lm_rec['weight_bytes']} B ({lm_rec['n_params']} params), "
+          f"prefill blocked {lm_rec['prefill_blocked_ms']:.1f} ms, flash "
+          f"{lm_rec['prefill_flash_ms']:.1f} ms (launches "
+          f"{lm_rec['launches']['flash_attention']}), decode "
+          f"{lm_rec['decode_ms_per_step']:.2f} ms/step, generate "
+          f"{lm_rec['generate_ms']:.1f} ms for {LM_GEN} tokens x {LM_BATCH} "
+          f"= {lm_rec['tokens_per_s']:.1f} tok/s, flash-vs-blocked logits "
+          f"{lm_rec['prefill_logit_diff_frac']:.4f} of the spread, greedy "
+          f"gap {lm_rec['prefill_gap_frac']:.4f}, decode gap max "
+          f"{lm_rec['decode_gap_frac_max']:.4f}, int8 up-projection rel err "
+          f"{lm_rec['int8_rel_err_vs_bf16']:.4f}, max memory allocated "
+          f"{lm_rec['max_memory_allocated']} B", flush=True)
+
+    for name, prof in lm_rec["profile"].items():
+        print(f"phase D profile, {name}: {prof['kernels']} kernels, "
+              f"{prof['device_ms']:.1f} ms on the card in {prof['wall_ms']:.1f}"
+              f" ms (idle share {prof['idle_share']}), top {prof['top'][:3]}",
+              flush=True)
 
     # -- phase C: each kernel against its plain version ---------------------
     kernels = []
@@ -503,17 +834,24 @@ def main(argv=None) -> int:
         "shape": f"q={q} n={n_b} words={w} K={k} radius={kw['radius']} "
                  f"blocks_touched={int((~prune).sum())}/{q * nb}"})
 
+    gen_c = torch.Generator(device=device).manual_seed(args.seed + 2)
+    kernels.append(flash_entries(gen_c, device, ops, ref,
+                                 lm_rec["launches"]["flash_attention"]))
+    kernels.append(int8_entry(int8_operands, ops, ref,
+                              lm_rec["int8_launches"]))
+
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} never launched")
         print(f"kernel {kern['name']}: launches {kern['launches']}, "
               f"{kern['ms']:.4f} ms on the card, {kern['call_ms']:.4f} ms "
               f"per call (plain {kern['plain_ms']:.4f} ms, bound "
               f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), max abs "
-              f"err {kern['max_abs_err']:.3g}, {kern['shape']}", flush=True)
+              f"err {kern['max_abs_err']:.3g}, library "
+              f"{kern['library_ms']} ms, {kern['shape']}", flush=True)
 
     for phase in (a, b):
         phase.pop("results")
-    record.update(phase_a=a, phase_b=b, kernels=kernels,
+    record.update(phase_a=a, phase_b=b, phase_d=lm_rec, kernels=kernels,
                   device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
@@ -521,9 +859,8 @@ def main(argv=None) -> int:
         args.record.parent.mkdir(parents=True, exist_ok=True)
         args.record.write_text(json.dumps(record, indent=1))
     print(card_line())  # name, power limit: nvidia-smi's own csv line
-    print(json.dumps({"kernels": [
-        {k: v for k, v in kern.items() if k not in ("shape", "call_ms")}
-        for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS}
+                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": record["device"]}))
     return 0
 

@@ -4,7 +4,8 @@
 the parameters, the LSH projection and the built engine's arrays from the
 reference as numpy arrays (the exporter that calls `np.asarray` on a
 `repro` engine lives in the tests). Packed signatures may come as uint32;
-they are viewed as int32 holding the same bits.
+they are viewed as int32 holding the same bits. bfloat16 leaves (numpy's
+`ml_dtypes.bfloat16`) arrive as bfloat16 tensors with the same bits.
 """
 from __future__ import annotations
 
@@ -20,6 +21,12 @@ def params_from_numpy(tree, device=None):
     """The reference's parameter pytree (dicts/lists of numpy arrays) as
     the same structure of tensors on `device` (default `cuda`)."""
     return to_device(tree, resolve_device(device))
+
+
+# an LM tree of `repro`'s `models/transformer.py` `init_params` (stacked
+# layer dicts, bf16 or f32 leaves) carries across the same way, ready for
+# `repro_torch.models.transformer.forward`
+lm_params_from_numpy = params_from_numpy
 
 
 def engine_from_arrays(*, cfg, params, tables_q: dict, item_table_q,

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 
 def build_dir() -> Path:
@@ -166,4 +167,9 @@ EMBEDDING_POOL = CudaKernel("embedding_pool", "embedding_pool.cu",
 STREAMING_NNS = CudaKernel("streaming_nns", "streaming_nns.cu",
                            [P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                             P, P, P, P, P, P])
-KERNELS = (HAMMING, EMBEDDING_POOL, STREAMING_NNS)
+FLASH_ATTENTION = CudaKernel("flash_attention", "flash_attention.cu",
+                             [P, P, P, P, I, I, I, I, I, F, I, I, P])
+INT8_MATMUL = CudaKernel("int8_matmul", "int8_matmul.cu",
+                         [P, P, P, P, P, I, I, I, P])
+KERNELS = (HAMMING, EMBEDDING_POOL, STREAMING_NNS, FLASH_ATTENTION,
+           INT8_MATMUL)

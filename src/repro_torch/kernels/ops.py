@@ -21,10 +21,13 @@ from repro_torch.kernels.build import check_tensor as _check
 from repro_torch.kernels.build import launch_counts, reset_launches
 from repro_torch.kernels.streaming_nns import streaming_nns_cuda
 
-__all__ = ["embedding_pool", "hamming_distances", "streaming_nns",
+__all__ = ["embedding_pool", "flash_attention", "flash_attention_bhsd",
+           "hamming_distances", "int8_matmul", "streaming_nns",
            "launch_counts", "reset_launches", "use_kernel"]
 
 _MODES = ("cuda", "torch")
+_FLASH_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in flash_attention.cu
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def use_kernel(name: str, t: torch.Tensor) -> bool:
@@ -118,3 +121,80 @@ def streaming_nns(queries, db, *, radius, max_candidates,
         queries, db, radius, max_candidates, scan_block=scan_block,
         n_valid=n_valid, superblock=superblock, db_mask=db_mask,
         prune_blocks=prune_blocks, prune_block_rows=prune_block_rows)
+
+
+def _flash_cuda(q, k, v, *, causal, scale, q_offset):
+    dev = q.device
+    op = "flash_attention"
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"{op}: dtype {q.dtype} (float32 or bfloat16)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(op, t, name, q.dtype, dev)
+    bh, sq, d = q.shape
+    if k.shape[0] != bh or k.shape[2] != d or v.shape != k.shape:
+        raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"{op}: head dim {d} not in {_FLASH_HEAD_DIMS}")
+    if -(-sq // 64) > 65535:
+        raise ValueError(f"{op}: {sq} query rows exceed the grid")
+    out = torch.empty_like(q)
+    build.FLASH_ATTENTION.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+        k.shape[1], d, _FLASH_DTYPES[q.dtype], scale, int(causal),
+        q_offset, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, q_offset=0):
+    """(bh, sq, d) x (bh, sk, d) attention -> (bh, sq, d) in q's dtype, as
+    `repro`'s `flash_attention_pallas`; `q_offset` places q[0] in the kv
+    sequence for the causal mask."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if use_kernel("flash_attention", q):
+        return _flash_cuda(q, k, v, causal=causal, scale=scale,
+                           q_offset=int(q_offset))
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   q_offset=q_offset)
+
+
+def flash_attention(q, k, v, *, causal=True, scale=None):
+    """(b, h, s, d) attention -> (b, h, sq, d); the flash kernel on the
+    card, its plain version on the CPU."""
+    b, h, sq, d = q.shape
+    out = flash_attention_bhsd(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * h, k.shape[2], d).contiguous(),
+        v.reshape(b * h, v.shape[2], d).contiguous(),
+        causal=causal, scale=scale)
+    return out.reshape(b, h, sq, d)
+
+
+def _int8_matmul_cuda(x, w, x_scale, w_scale):
+    dev = x.device
+    op = "int8_matmul"
+    _check(op, x, "x", torch.int8, dev)
+    _check(op, w, "w", torch.int8, dev)
+    _check(op, x_scale, "x_scale", torch.float32, dev)
+    _check(op, w_scale, "w_scale", torch.float32, dev)
+    m, k = x.shape
+    k2, n = w.shape
+    if k != k2 or x_scale.shape != (m, 1) or w_scale.shape != (1, n):
+        raise ValueError(f"{op}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"x_scale {tuple(x_scale.shape)}, "
+                         f"w_scale {tuple(w_scale.shape)}")
+    if -(-m // 64) > 65535:
+        raise ValueError(f"{op}: {m} rows exceed the grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    build.INT8_MATMUL.launch(
+        x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def int8_matmul(x, w, x_scale, w_scale):
+    """int8 (m,k) @ int8 (k,n) with per-row (m,1) / per-column (1,n) f32
+    scales -> f32 (m,n), equal bit for bit to the plain version."""
+    if use_kernel("int8_matmul", x):
+        return _int8_matmul_cuda(x, w, x_scale, w_scale)
+    return ref.int8_matmul_ref(x, w, x_scale, w_scale)

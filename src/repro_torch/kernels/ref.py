@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels of the serve path.
+"""Plain PyTorch versions of the port's kernels.
 
 They mirror `repro/kernels/ref.py` op for op: the CPU tests run them
 against the JAX reference, a CPU tensor takes them in `kernels/ops.py`, and
@@ -124,3 +124,99 @@ def streaming_nns_ref(
         torch.cat(all_idx, dim=1), torch.cat(all_dist, dim=1),
         max_candidates)
     return indices, distances, counts
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul (the iMARS crossbar MVM analogue)
+# ---------------------------------------------------------------------------
+def int8_matmul_ref(
+    x: torch.Tensor,  # (m, k) int8
+    w: torch.Tensor,  # (k, n) int8
+    x_scale: torch.Tensor,  # (m, 1) f32
+    w_scale: torch.Tensor,  # (1, n) f32
+) -> torch.Tensor:
+    """int8 x int8 product dequantized -> (m, n) f32.
+
+    cuBLAS has no int32 GEMM, so the exact integer accumulator comes from a
+    float64 product: every partial sum is an integer below k * 128**2,
+    exact while that is under 2**53. Cast to float32, then
+    `(acc * x_scale) * w_scale`, two rounded multiplies in the reference's
+    order (`acc.astype(f32) * x_scale * w_scale`).
+    """
+    acc = torch.matmul(x.to(torch.float64), w.to(torch.float64))
+    return (acc.to(torch.float32) * x_scale) * w_scale
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30  # the flash kernel's mask value
+
+
+def attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0):
+    """Full-materialization softmax attention (oracle), (b, h, s, d)."""
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        rows = torch.arange(sq, device=q.device)[:, None] + q_offset
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(cols <= rows, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def blocked_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
+                          block_k=1024):
+    """Online-softmax attention over kv blocks of `block_k`, (b, h, s, d).
+
+    The reference's CPU path for `ops.flash_attention`: f32 inside, -inf
+    masking with the rows that have no valid key yet guarded.
+    """
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    qf = q.float() * scale
+    rows = torch.arange(sq, device=q.device)[:, None] + q_offset
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for lo in range(0, sk, block_k):
+        kb = k[:, :, lo:lo + block_k].float()
+        vb = v[:, :, lo:lo + block_k].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb)
+        cols = lo + torch.arange(kb.shape[2], device=q.device)[None, :]
+        mask = cols <= rows if causal else torch.ones_like(cols, dtype=bool)
+        s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0):
+    """The flash kernel's function on (bh, sq, d) x (bh, sk, d), one block.
+
+    Scores `(q . k) * scale` in f32; masked scores are -1e30 and their
+    probabilities 0; the normalizer is clamped at 1e-30 — so a row with no
+    valid key gives 0, not NaN, as `repro`'s `_flash_kernel` does. Returns
+    q's dtype.
+    """
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + q_offset
+        mask = torch.arange(sk, device=q.device)[None, :] <= rows
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (torch.einsum("bqk,bkd->bqd", p, v.float()) / l).to(q.dtype)

@@ -1,0 +1,74 @@
+"""LM prefill / decode steps and a batched greedy generation engine.
+
+The port of `repro/serving/engine.py` for the dense family. There is no
+`jax.jit`: each step runs eagerly on the params' device. Decode updates
+the KV cache in place (see `models/attention.py`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, *, cache_len: int,
+            cache_dtype: str = "bfloat16", remat: str = "none",
+            attn_impl: str = "blocked") -> tf.ModelOutput:
+    """Process a prompt batch; returns last-token logits + a filled cache."""
+    return tf.forward(params, cfg, batch, mode="prefill",
+                      cache_len=cache_len, cache_dtype=cache_dtype,
+                      remat=remat, attn_impl=attn_impl, logits_mode="last")
+
+
+def decode_step(params, cfg: ModelConfig, batch: dict, caches: Any,
+                cache_index, *, attn_impl: str = "blocked"
+                ) -> tf.ModelOutput:
+    """One token per sequence against an existing cache (written in
+    place at `cache_index`)."""
+    return tf.forward(params, cfg, batch, mode="decode", caches=caches,
+                      cache_index=cache_index, attn_impl=attn_impl,
+                      logits_mode="all")
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray  # (B, n_generated) int32
+
+
+class LMServingEngine:
+    """Synchronous batched engine: prefill once, greedy-decode n steps.
+
+    The argmax runs on the card; the chosen tokens come back to the host
+    once per step, as in the reference.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *, batch: int,
+                 cache_len: int, cache_dtype: str = "bfloat16"):
+        self.params = params
+        self.cfg = cfg
+        self.batch = batch
+        self.cache_len = cache_len
+        self.cache_dtype = cache_dtype
+
+    def generate(self, prompt_batch: dict, n_steps: int) -> GenerationResult:
+        cfg = self.cfg
+        prompt_len = prompt_batch["tokens"].shape[-1]
+        out = prefill(self.params, cfg, prompt_batch,
+                      cache_len=self.cache_len, cache_dtype=self.cache_dtype)
+        caches = out.caches
+        tok = out.logits[:, -1].argmax(-1)  # greedy
+        toks = [tok.to(torch.int32).cpu().numpy()]
+        index = prompt_len
+        for _ in range(n_steps - 1):
+            out = decode_step(self.params, cfg, {"tokens": tok[:, None]},
+                              caches, index)
+            caches = out.caches
+            tok = out.logits[:, -1].argmax(-1)
+            toks.append(tok.to(torch.int32).cpu().numpy())
+            index += 1
+        return GenerationResult(tokens=np.stack(toks, axis=-1))

@@ -38,13 +38,20 @@ def resolve_device(device=None) -> torch.device:
 def to_device(tree, device):
     """Numpy arrays and tensors of a nested dict/list, as tensors on
     `device`. Arrays are copied; uint32 arrays (packed signatures) become
-    int32 tensors holding the same bits."""
+    int32 tensors holding the same bits, and bfloat16 arrays (numpy's
+    `ml_dtypes.bfloat16`, which `torch.from_numpy` refuses) bfloat16
+    tensors holding the same bits."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_device(v, device) for v in tree]
     if not isinstance(tree, torch.Tensor):
         a = np.array(tree)
-        tree = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
-                                else a)
+        if a.dtype == np.uint32:
+            tree = torch.from_numpy(a.view(np.int32))
+        elif a.dtype.name == "bfloat16":
+            tree = torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            tree = torch.from_numpy(a)
     return tree.to(device)

@@ -10,7 +10,10 @@ where only PyTorch is installed; from the repository root:
 versions are themselves held against the JAX reference on the CPU by
 `tests/test_torch_kernels.py`, `tests/test_torch_core.py` and
 `tests/test_torch_engine.py`. Integer outputs must be equal; the pool's
-floats are held to 1e-6 of the pooled magnitudes, as there.
+floats are held to 1e-6 of the pooled magnitudes, as there. The flash
+kernel is held to 2e-5 in float32 and 2e-2 in bfloat16 (the Pallas
+kernel's tolerances in `tests/test_kernels.py`; both sides accumulate in
+float32 in another order), the int8 matmul bit for bit.
 """
 import contextlib
 import os
@@ -219,3 +222,88 @@ def test_engine_on_the_card_serves_like_the_cpu_engine(cuda, scan_block):
     assert torch.equal(got.items, plain.items)
     assert torch.equal(got.nns.indices, plain.nns.indices)
     assert got.stats.as_dict() == cpu.serve(batch).stats.as_dict()
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: flash attention and int8 matmul
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+    (2, 128, 128, 64, True, 0), (1, 64, 192, 64, True, 128),
+    (2, 100, 100, 32, False, 0), (3, 77, 130, 128, True, 53),
+    (4, 256, 256, 128, True, 0), (2, 33, 33, 16, True, 0),
+    (2, 8, 8, 16, True, -3)])
+def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
+                                       q_offset, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda)
+               .to(dtype) for s in (sq, sk, sk))
+    before = build.FLASH_ATTENTION.launches
+    got = ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                   q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_attention_op_folds_heads(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((2, 4, 96, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    got = ops.flash_attention(q.transpose(1, 2).contiguous().transpose(
+        1, 2), k, v)  # a non-contiguous q is taken
+    want = ref.flash_attention_ref(q.reshape(8, 96, 64),
+                                   k.reshape(8, 96, 64),
+                                   v.reshape(8, 96, 64)).reshape(q.shape)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 32, 16), (128, 256, 128),
+                                   (100, 130, 50), (256, 512, 512),
+                                   (1, 7, 3), (333, 4096, 129)])
+def test_int8_matmul_equals_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    sx = torch.from_numpy((np.abs(rng.standard_normal((m, 1))) + 0.01)
+                          .astype(np.float32))
+    sw = torch.from_numpy((np.abs(rng.standard_normal((1, n))) + 0.01)
+                          .astype(np.float32))
+    args = [a.to(cuda) for a in (x, w, sx, sw)]
+    before = build.INT8_MATMUL.launches
+    got = ops.int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert build.INT8_MATMUL.launches == before + 1
+    assert torch.equal(got, ref.int8_matmul_ref(*args))
+    assert torch.equal(got.cpu(), ref.int8_matmul_ref(x, w, sx, sw))
+
+
+def test_lm_kernels_refuse_bad_input(cuda):
+    q = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):  # dtype
+        ops.flash_attention_bhsd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):  # mixed dtypes
+        ops.flash_attention_bhsd(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):  # device
+        ops.flash_attention_bhsd(q, q.cpu(), q)
+    with pytest.raises(ValueError):  # head dim
+        z = torch.zeros((2, 8, 48), device=cuda)
+        ops.flash_attention_bhsd(z, z, z)
+    with pytest.raises(ValueError):  # shapes
+        ops.flash_attention_bhsd(q, q[:1], q[:1])
+    x = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
+    s4, s1 = torch.ones((4, 1), device=cuda), torch.ones((1, 4), device=cuda)
+    with pytest.raises(ValueError):  # dtype
+        ops.int8_matmul(x.float(), x.T.contiguous(), s4, s1)
+    with pytest.raises(ValueError):  # device
+        ops.int8_matmul(x, x.T.contiguous().cpu(), s4, s1)
+    with pytest.raises(ValueError):  # shape
+        ops.int8_matmul(x, x.T.contiguous(), s1, s1)
+    with pytest.raises(ValueError):  # inner dims
+        ops.int8_matmul(x, x, s4, torch.ones((1, 8), device=cuda))

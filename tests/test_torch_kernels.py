@@ -25,7 +25,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import streaming_nns as jsnn
 from repro.kernels.embedding_pool import embedding_pool_pallas
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.hamming_nns import hamming_distances_pallas
+from repro.kernels.int8_matmul import int8_matmul_pallas
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import streaming_nns as tsnn
 
@@ -276,14 +278,14 @@ def test_build_compiles_each_source_once_per_content(tmp_path, monkeypatch):
     monkeypatch.setattr(build.CudaKernel, "_load", lambda self: None)
     build.build_all(kernels)
     calls = log.read_text().splitlines()
-    assert len(calls) == 3
+    assert len(calls) == len(kernels)
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     for k in kernels:
         path = k.library_path()
         assert path.exists() and path.parent == tmp_path / "out"
         assert path.name.startswith(k.source.stem + "-")
     build.build_all(kernels)  # libraries exist: nothing recompiles
-    assert len(log.read_text().splitlines()) == 3
+    assert len(log.read_text().splitlines()) == len(kernels)
     monkeypatch.setenv("FAIL", "1")
     for k in kernels:
         k.library_path().unlink()
@@ -302,7 +304,11 @@ def test_sources_carry_their_notes():
 
 def test_import_builds_nothing_and_needs_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.serving.recsys_engine\n"
+            "repro_torch.kernels.ops, repro_torch.serving.recsys_engine, "
+            "repro_torch.serving.engine, repro_torch.serving.kv_cache, "
+            "repro_torch.launch.serve, repro_torch.configs.registry, "
+            "repro_torch.configs.qwen3_8b, repro_torch.configs.qwen2_5_3b, "
+            "repro_torch.configs.chatglm3_6b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'triton')]\n"
             "assert not bad, bad\n")
@@ -310,3 +316,110 @@ def test_import_builds_nothing_and_needs_no_jax():
            "REPRO_TORCH_BUILD_DIR": "/nonexistent/never-created"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and int8 matmul (the LM side)
+# ---------------------------------------------------------------------------
+FLASH_CASES = [(2, 128, 128, 64, True), (1, 64, 192, 64, True),
+               (2, 100, 100, 32, False)]  # as tests/test_kernels.py
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", FLASH_CASES)
+def test_flash_ref_matches_pallas_kernel(bh, sq, sk, d, causal, dtype):
+    """The plain version against the Pallas kernel in interpret mode, both
+    in the working dtype: 2e-5 in float32 (sums in another order), 2e-2
+    in bfloat16 (the tolerance `tests/test_kernels.py` holds the kernel to;
+    the outputs round to bf16)."""
+    rng = np.random.default_rng(bh * sq + sk + d)
+    q, k, v = (rng.standard_normal((bh, s, d)).astype(np.float32)
+               for s in (sq, sk, sk))
+    q_offset = sk - sq if causal else 0
+    jdt = jnp.dtype(dtype)
+    want = flash_attention_pallas(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+        block_q=64, block_k=64, q_offset=q_offset, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention_bhsd(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal,
+        q_offset=q_offset)
+    assert got.dtype == tdt and got.shape == (bh, sq, d)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_ref_row_without_a_valid_key_is_zero():
+    """q_offset < 0 leaves the first rows with no key at or before them:
+    the kernel's -1e30 masking and clamped normalizer give 0, not NaN."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, 16))
+                                .astype(np.float32)) for _ in range(3))
+    got = ref.flash_attention_ref(q, k, v, causal=True, q_offset=-3)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[0, :3] == 0).all()) and bool((got[0, 3:] != 0).any())
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 7),
+                                             (False, 0)])
+def test_attention_refs_match_reference(causal, q_offset):
+    """attention_ref and blocked_attention_ref on (b, h, s, d) against the
+    jnp oracles, 2e-5 (float32 sums in another order)."""
+    rng = np.random.default_rng(q_offset)
+    q = rng.standard_normal((2, 3, 37, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 3, 44, 16)).astype(np.float32)
+            for _ in range(2))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=causal, q_offset=q_offset)
+    for got, want in (
+            (ref.attention_ref(tq, tk, tv, **kw),
+             jref.attention_ref(jq, jk, jv, **kw)),
+            (ref.blocked_attention_ref(tq, tk, tv, block_k=16, **kw),
+             jref.blocked_attention_ref(jq, jk, jv, block_k=16, **kw))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_op_matches_reference_op():
+    """ops.flash_attention on (b, h, s, d) CPU tensors (the kernel's plain
+    version) against the reference's public op (its blocked oracle on the
+    CPU), 2e-5."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 4, 50, 32)).astype(np.float32)
+               for _ in range(3))
+    want = jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)))
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 32, 16), (128, 256, 128),
+                                   (100, 130, 50)])
+def test_int8_matmul_equals_pallas_kernel(m, k, n):
+    """Bit for bit: the integer accumulator is exact on both sides and the
+    two scale multiplies round in the same order."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sx = (np.abs(rng.standard_normal((m, 1))) + 0.01).astype(np.float32)
+    sw = (np.abs(rng.standard_normal((1, n))) + 0.01).astype(np.float32)
+    args = [jnp.asarray(a) for a in (x, w, sx, sw)]
+    want = np.asarray(int8_matmul_pallas(*args, block_m=64, block_n=64,
+                                         block_k=64, interpret=True))
+    got = ops.int8_matmul(*(torch.from_numpy(a) for a in (x, w, sx, sw)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jref.int8_matmul_ref(*args)))
+
+
+def test_lm_ops_on_cpu_tensors_launch_nothing():
+    build.reset_launches()
+    q = torch.zeros((1, 2, 8, 16))
+    ops.flash_attention(q, q, q)
+    x = torch.zeros((4, 8), dtype=torch.int8)
+    ops.int8_matmul(x, x.T.contiguous(), torch.ones(4, 1), torch.ones(1, 4))
+    assert set(build.launch_counts().values()) == {0}
