@@ -35,12 +35,15 @@
    `superblock` override and against the dense plan; flash also in float32
    with a ragged kv length and `q_offset`); integer outputs and the int8
    matmul must be equal, the pool within 1e-5 relative, flash within 2e-2
-   (bf16) and 2e-5 (f32). Kernel times are CUDA-event means over
-   back-to-back launches queued behind a spin (warm L2, as in the serve
+   (bf16) and 2e-5 (f32); the flash kernel is also timed in float32 at
+   phase D's shape (its CUDA-core path). Kernel times are CUDA-event means
+   over back-to-back launches queued behind a spin (warm L2, as in the serve
    loop); the wall time per call, host included, goes to the record as
    `call_ms`. `library_ms` times one PyTorch call of the same function
    where there is one (`scaled_dot_product_attention`; `torch._int_mm`
-   and the two scale multiplies); the port never calls either.
+   and the two scale multiplies, with W in both layouts, (k, n) row-major
+   and the K-major view of its transpose, the faster kept); the port never
+   calls either.
 
 Prints one line per kernel, the card's name and power limit, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
@@ -513,8 +516,9 @@ def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
 
 
 def flash_entries(gen, device, ops, ref, launches: int):
-    """Phase C for the flash kernel: phase D's shape (bf16) and a float32
-    case with a ragged kv length and q_offset."""
+    """Phase C for the flash kernel: phase D's shape (bf16, timed, and
+    timed again in float32 on the CUDA-core path) and a float32 case with
+    a ragged kv length and q_offset."""
     errs, entry = {}, None
     for name, bh, sq, sk, d, dt, off in FLASH_CASES:
         q, k, v = (torch.randn((bh, s, d), generator=gen, device=device)
@@ -531,8 +535,9 @@ def flash_entries(gen, device, ops, ref, launches: int):
             continue
         rows = torch.arange(sq, device=device) + off
         pairs = int((rows + 1).clamp(0, sk).sum())  # causal (row, key)
-        bnd, by = bound(4 * bh * sq * d * q.element_size(),
-                        4 * d * bh * pairs, BF16_TC_FLOPS)
+        flops = 4 * d * bh * pairs
+        bnd, by = bound(4 * bh * sq * d * q.element_size(), flops,
+                        BF16_TC_FLOPS)
         q4, k4, v4 = (t.view(4, bh // 4, -1, d) for t in (q, k, v))
         lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
         entry = {
@@ -540,8 +545,8 @@ def flash_entries(gen, device, ops, ref, launches: int):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:140",
             "launches": launches, "max_abs_err": err,
-            "ms": timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 5),
-            "call_ms": call_ms(lambda: ops._flash_cuda(q, k, v, **kw), 5),
+            "ms": timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
+            "call_ms": call_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
             "plain_ms": timed_ms(
                 lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
             "bound_ms": bnd, "bound_by": by,
@@ -550,6 +555,10 @@ def flash_entries(gen, device, ops, ref, launches: int):
             "library_max_abs_err": float(
                 (lib.reshape(got.shape).float() - want.float()).abs().max()),
             "shape": f"bh={bh} sq={sq} sk={sk} d={d} {dt} causal"}
+        entry["rate"] = f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s"
+        # the float32 path (CUDA cores) at the same shape
+        q, k, v = (t.float() for t in (q, k, v))
+        entry["f32_ms"] = timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 3)
     entry["case_errs"] = errs
     return entry
 
@@ -567,21 +576,27 @@ def int8_entry(operands: dict, ops, ref, launches: int):
     bnd, by = bound(m * k + k * n + 4 * (m + n) + 4 * m * n, 2 * m * n * k,
                     INT8_TC_OPS)
     got = ops._int8_matmul_cuda(x, w, sx, sw)
+    wt = w.t().contiguous()  # K-major W for the library's second layout
 
-    def library():
-        return (torch._int_mm(x, w).float() * sx) * sw
+    def library(w_op):
+        return (torch._int_mm(x, w_op).float() * sx) * sw
 
+    lib_ms = {"n_major": timed_ms(lambda: library(w), 10),
+              "k_major": timed_ms(lambda: library(wt.t()), 10)}
+    ms = timed_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 10)
     return {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:76",
         "launches": launches, "max_abs_err": 0.0,
-        "ms": timed_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 3),
-        "call_ms": call_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 3),
+        "ms": ms, "rate": f"{2 * m * n * k / ms / 1e9:.1f} TOP/s",
+        "call_ms": call_ms(lambda: ops._int8_matmul_cuda(x, w, sx, sw), 10),
         "plain_ms": timed_ms(lambda: ref.int8_matmul_ref(x, w, sx, sw), 2),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": timed_ms(library, 10),
-        "library_equal": bool(torch.equal(library(), got)),
+        "library_ms": min(lib_ms.values()), "library_layouts_ms": lib_ms,
+        "library_equal": {name: bool(torch.equal(library(w_op), got))
+                          for name, w_op in (("n_major", w),
+                                             ("k_major", wt.t()))},
         "small_ms": timed_ms(
             lambda: ops._int8_matmul_cuda(*operands["small"]), 50),
         "shape": f"m={m} k={k} n={n}"}
@@ -847,7 +862,10 @@ def main(argv=None) -> int:
               f"per call (plain {kern['plain_ms']:.4f} ms, bound "
               f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), max abs "
               f"err {kern['max_abs_err']:.3g}, library "
-              f"{kern['library_ms']} ms, {kern['shape']}", flush=True)
+              f"{kern['library_ms']} ms, {kern['shape']}"
+              + "".join(f", {key} {kern[key]}" for key in
+                        ("rate", "f32_ms", "library_layouts_ms")
+                        if key in kern), flush=True)
 
     for phase in (a, b):
         phase.pop("results")

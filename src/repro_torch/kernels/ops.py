@@ -28,6 +28,9 @@ __all__ = ["embedding_pool", "flash_attention", "flash_attention_bhsd",
 _MODES = ("cuda", "torch")
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in flash_attention.cu
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# int8_matmul.cu sums in int32: |x w| <= 128 * 128 a term, so k * 2**14
+# stays below 2**31 for k up to this
+_INT8_MAX_K = 2**31 // 2**14 - 1
 
 
 def use_kernel(name: str, t: torch.Tensor) -> bool:
@@ -139,6 +142,9 @@ def _flash_cuda(q, k, v, *, causal, scale, q_offset):
     if -(-sq // 64) > 65535:
         raise ValueError(f"{op}: {sq} query rows exceed the grid")
     out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError(f"{op}: q, k, v and out must be 16-byte aligned "
+                         f"(cp.async copies 16 bytes)")
     build.FLASH_ATTENTION.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
         k.shape[1], d, _FLASH_DTYPES[q.dtype], scale, int(causal),
@@ -183,8 +189,11 @@ def _int8_matmul_cuda(x, w, x_scale, w_scale):
         raise ValueError(f"{op}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"x_scale {tuple(x_scale.shape)}, "
                          f"w_scale {tuple(w_scale.shape)}")
-    if -(-m // 64) > 65535:
+    if -(-m // 128) > 65535:
         raise ValueError(f"{op}: {m} rows exceed the grid")
+    if k > _INT8_MAX_K:
+        raise ValueError(f"{op}: k = {k} > {_INT8_MAX_K}: the int32 sum "
+                         f"could overflow")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     build.INT8_MATMUL.launch(
         x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),

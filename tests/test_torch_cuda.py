@@ -232,7 +232,14 @@ def test_engine_on_the_card_serves_like_the_cpu_engine(cuda, scan_block):
     (2, 128, 128, 64, True, 0), (1, 64, 192, 64, True, 128),
     (2, 100, 100, 32, False, 0), (3, 77, 130, 128, True, 53),
     (4, 256, 256, 128, True, 0), (2, 33, 33, 16, True, 0),
-    (2, 8, 8, 16, True, -3)])
+    (2, 8, 8, 16, True, -3),
+    # the tensor-core kernel's tile edges: 64-row q tiles, 64-key tiles,
+    # every head dim, q_offset on both sides, non-causal with sk > sq
+    (3, 1, 1, 16, True, 0), (4, 1, 333, 128, True, 332),
+    (2, 63, 100, 32, True, 37), (3, 65, 65, 64, True, 0),
+    (2, 129, 300, 128, True, 171), (2, 200, 200, 128, True, 0),
+    (2, 200, 150, 64, True, -45), (2, 65, 190, 16, False, 0),
+    (1, 129, 1000, 128, False, 0), (2, 63, 127, 32, False, 0)])
 def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
                                        q_offset, dtype):
     gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -251,6 +258,24 @@ def test_flash_attention_matches_plain(cuda, bh, sq, sk, d, causal,
                                atol=tol)
 
 
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_bf16_rows_without_a_valid_key_are_zero(cuda, d):
+    """q_offset < 0 leaves the first rows with no key at or before them;
+    the kernel's explicit 0 for masked probabilities and its clamped
+    normalizer give exactly 0 there (exp(-1e30 - -1e30) would be 1)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, 150, d), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    got = ops.flash_attention_bhsd(q, k, v, causal=True, q_offset=-70)
+    torch.cuda.synchronize()
+    assert bool((got[:, :70] == 0).all())
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[:, 70:] != 0).any())
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=-70)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_flash_attention_op_folds_heads(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn((2, 4, 96, 64), generator=gen, device=cuda)
@@ -266,7 +291,10 @@ def test_flash_attention_op_folds_heads(cuda):
 
 @pytest.mark.parametrize("m,k,n", [(8, 32, 16), (128, 256, 128),
                                    (100, 130, 50), (256, 512, 512),
-                                   (1, 7, 3), (333, 4096, 129)])
+                                   (1, 7, 3), (333, 4096, 129),
+                                   # k % 32 != 0 and n, m off the 128 tile
+                                   (257, 1008, 260), (200, 100, 130),
+                                   (1024, 4096, 1024)])
 def test_int8_matmul_equals_plain(cuda, m, k, n):
     rng = np.random.default_rng(m + k + n)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
@@ -297,6 +325,11 @@ def test_lm_kernels_refuse_bad_input(cuda):
         ops.flash_attention_bhsd(z, z, z)
     with pytest.raises(ValueError):  # shapes
         ops.flash_attention_bhsd(q, q[:1], q[:1])
+    with pytest.raises(ValueError):  # not 16-byte aligned (cp.async)
+        u = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16,
+                        device=cuda)[1:].view(2, 8, 64)
+        assert u.is_contiguous()
+        ops.flash_attention_bhsd(u, u, u)
     x = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
     s4, s1 = torch.ones((4, 1), device=cuda), torch.ones((1, 4), device=cuda)
     with pytest.raises(ValueError):  # dtype
@@ -307,3 +340,9 @@ def test_lm_kernels_refuse_bad_input(cuda):
         ops.int8_matmul(x, x.T.contiguous(), s1, s1)
     with pytest.raises(ValueError):  # inner dims
         ops.int8_matmul(x, x, s4, torch.ones((1, 8), device=cuda))
+    big_k = 131072  # k * 128**2 reaches 2**31: the int32 sum could wrap
+    with pytest.raises(ValueError):
+        ops.int8_matmul(torch.zeros((4, big_k), dtype=torch.int8,
+                                    device=cuda),
+                        torch.zeros((big_k, 4), dtype=torch.int8,
+                                    device=cuda), s4, s1)

@@ -351,6 +351,58 @@ def test_flash_ref_matches_pallas_kernel(bh, sq, sk, d, causal, dtype):
                                rtol=tol, atol=tol)
 
 
+def _tensor_core_flash(q, k, v, *, causal, scale, q_offset, block_k=64):
+    """The rounding of the bf16 tensor-core kernel (`flash_attention.cu`),
+    in plain PyTorch on the CPU: 64-key tiles, online softmax in float32
+    with exp2 and scale * log2(e) folded in, masked probabilities exactly
+    0, P rounded to bf16 before P V, float32 accumulation, out in bf16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    rows = torch.arange(sq)[:, None] + q_offset
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    for k0 in range(0, sk, block_k):
+        kt, vt = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        cols = k0 + torch.arange(kt.shape[1])[None, :]
+        valid = (cols <= rows) if causal else torch.ones_like(cols, dtype=bool)
+        x = torch.where(valid, (q.float() @ kt.transpose(1, 2)) * scale_log2,
+                        -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(valid, torch.exp2(x - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_offset", [
+    (bh, sq, sk, d, causal, sk - sq if causal else 0)
+    for bh, sq, sk, d, causal in FLASH_CASES] + [(2, 80, 100, 16, True, -20)])
+def test_tensor_core_rounding_stays_within_the_bf16_tolerance(
+        bh, sq, sk, d, causal, q_offset):
+    """The bf16 kernel's own rounding (P in bf16 before P V), emulated on
+    the CPU, against the Pallas kernel in interpret mode at the bf16
+    tolerance, 2e-2: the design's numerics hold without a card."""
+    rng = np.random.default_rng(bh * sq + sk + d + 1)
+    q, k, v = (rng.standard_normal((bh, s, d)).astype(np.float32)
+               for s in (sq, sk, sk))
+    want = flash_attention_pallas(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, block_q=64, block_k=64, q_offset=q_offset,
+        interpret=True)
+    got = _tensor_core_flash(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=causal, scale=d**-0.5, q_offset=q_offset)
+    if q_offset < 0:  # rows with no valid key: exactly 0, as the kernel
+        assert bool((got[:, :-q_offset] == 0).all())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_flash_ref_row_without_a_valid_key_is_zero():
     """q_offset < 0 leaves the first rows with no key at or before them:
     the kernel's -1e30 masking and clamped normalizer give 0, not NaN."""
