@@ -43,7 +43,10 @@
    where there is one (`scaled_dot_product_attention`; `torch._int_mm`
    and the two scale multiplies, with W in both layouts, (k, n) row-major
    and the K-major view of its transpose, the faster kept); the port never
-   calls either.
+   calls either. The streaming kernel's bound is the faster of its two
+   engines (the +-1 int8 product on the tensor cores, or XOR-popcount on
+   the CUDA cores), and one informative line times `torch._int_mm` on the
+   +-1-expanded operands: the distance product alone, without selection.
 
 Prints one line per kernel, the card's name and power limit, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
@@ -563,6 +566,28 @@ def flash_entries(gen, device, ops, ref, launches: int):
     return entry
 
 
+def pm1_expand(sigs: torch.Tensor) -> torch.Tensor:
+    """(n, w) int32 signatures -> (n, 32 w) int8, bit i of a word -> 1 - 2
+    bit (any fixed bit order gives the same distances)."""
+    shifts = torch.arange(32, device=sigs.device, dtype=torch.int32)
+    bits = (sigs[:, :, None] >> shifts) & 1
+    return (1 - 2 * bits).to(torch.int8).reshape(sigs.shape[0], -1)
+
+
+def pm1_product_ms(qs, db, ref) -> tuple[float, bool]:
+    """Phase C, informative: `torch._int_mm` of the +-1-expanded queries
+    and DB (K-major), the streaming kernel's distance product alone with
+    no selection. Its distances (32 w - dot) / 2 are checked against the
+    plain Hamming distances on the first 4096 rows."""
+    a, b = pm1_expand(qs), pm1_expand(db)
+    w32 = a.shape[1]
+    dot = torch._int_mm(a, b[:4096].t())
+    ok = bool(torch.equal((w32 - dot) // 2,
+                          ref.hamming_distance_ref(qs, db[:4096])))
+    ms = timed_ms(lambda: torch._int_mm(a, b.t()), 10)
+    return ms, ok
+
+
 def int8_entry(operands: dict, ops, ref, launches: int):
     """Phase C for the int8 matmul: bit-equal at both shapes; timed at the
     MLP up-projection."""
@@ -830,8 +855,14 @@ def main(argv=None) -> int:
                           torch.nonzero(block_needed).flatten().tolist()))
     pair_rows = int((~prune).sum()) * br  # admitted (query, row) pairs
     k = kw["max_candidates"]
-    bnd, by = bound(4 * (q * w + rows_needed * w) + q * nb
-                    + 8 * q * k + 4 * q, 3 * pair_rows * w)
+    # the distance work on either engine, the faster counting: XOR,
+    # popcount and add per word on the CUDA cores, or the +-1 int8 product
+    # (2 x 32 w operations per pair) on the int8 tensor cores
+    nns_bytes = (4 * (q * w + rows_needed * w) + q * nb + 8 * q * k + 4 * q)
+    bnd_cc, by_cc = bound(nns_bytes, 3 * pair_rows * w)
+    bnd_tc, by_tc = bound(nns_bytes, 2 * pair_rows * 32 * w, INT8_TC_OPS)
+    bnd, by = min((bnd_cc, by_cc), (bnd_tc, by_tc))
+    prod_ms, prod_ok = pm1_product_ms(qb, db_b, ref)
     kernels.append({
         "name": "streaming_nns", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/streaming_nns.cu",
@@ -846,8 +877,16 @@ def main(argv=None) -> int:
         "plain_ms": timed_ms(lambda: ref.streaming_nns_ref(
             qb, db_b, kw["radius"], k, **variants["pruned"]), 3),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "bound_int8_tc_ms": bnd_tc, "bound_cuda_cores_ms": bnd_cc,
+        "pm1_int_mm_ms": prod_ms, "pm1_int_mm_equal": prod_ok,
         "shape": f"q={q} n={n_b} words={w} K={k} radius={kw['radius']} "
-                 f"blocks_touched={int((~prune).sum())}/{q * nb}"})
+                 f"blocks_touched={int((~prune).sum())}/{q * nb}, bound "
+                 f"{bnd_tc:.4f} ms on the int8 tensor cores, {bnd_cc:.4f} "
+                 f"ms on the CUDA cores"})
+    print(f"streaming_nns distance product alone (informative, not "
+          f"library_ms): torch._int_mm on the +-1 operands ({q} x {32 * w} "
+          f"x {n_b}, int32 out) {prod_ms:.4f} ms, distances equal to the "
+          f"plain Hamming on a slice: {prod_ok}", flush=True)
 
     gen_c = torch.Generator(device=device).manual_seed(args.seed + 2)
     kernels.append(flash_entries(gen_c, device, ops, ref,

@@ -166,7 +166,7 @@ EMBEDDING_POOL = CudaKernel("embedding_pool", "embedding_pool.cu",
                             [P, P, P, P, P, I, I, I, I, P])
 STREAMING_NNS = CudaKernel("streaming_nns", "streaming_nns.cu",
                            [P, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                            P, P, P, P, P, P])
+                            P, P, P, P, P, P, P])
 FLASH_ATTENTION = CudaKernel("flash_attention", "flash_attention.cu",
                              [P, P, P, P, I, I, I, I, I, F, I, I, P])
 INT8_MATMUL = CudaKernel("int8_matmul", "int8_matmul.cu",

@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by the flash-attention and int8 matmul
-// kernels (sm_90a): asynchronous 16-byte copies into shared memory,
-// `ldmatrix` and the warp-level `mma.sync` products, as inline PTX.
+// Tensor-core building blocks shared by the flash-attention, int8 matmul
+// and streaming-NNS kernels (sm_90a): asynchronous 16-byte copies into
+// shared memory, `ldmatrix` and the warp-level `mma.sync` products, as
+// inline PTX.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
 // with g = lane / 4 and t = lane % 4:
@@ -51,6 +52,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+// Two 8 x 8 matrices, rows given by lanes 0-7 and 8-15 (the addresses of
+// lanes 16-31 are not read).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   uint32_t addr) {
   asm volatile(
@@ -81,6 +91,20 @@ __device__ __forceinline__ void mma_s8_16832(int (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a . b + c on one 16 x 8 x 32 tile, s8 operands, with the
+// accumulator taken from c (which is left as it is).
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1,
+                                             const int (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
 }
 
 }  // namespace repro

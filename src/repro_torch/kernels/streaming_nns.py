@@ -23,6 +23,13 @@ BIG_DIST = 2**30
 CUDA_MAX_CANDIDATES = 128
 # split alignment of the CUDA kernel's first pass when nothing is pruned
 CUDA_SPLIT_ALIGN = 1024
+# queries per block of the first pass, and its largest split: its keys hold
+# a split-local row in 23 bits
+CUDA_QUERY_TILE = 128
+CUDA_MAX_SPLIT_ROWS = 1 << 23
+# per query of the kernel's histogram scratch: 257 distance bins, the
+# length of its candidate list and its distance bound
+_CUDA_HIST_COLS = 32 * 8 + 3
 
 
 def key_shift(words: int) -> int:
@@ -98,13 +105,16 @@ def split_layout(n: int, q: int, n_sms: int, *, prune_block_rows=None,
                  superblock=None) -> tuple[int, int]:
     """(split_rows, n_splits) of the kernel's first pass.
 
-    Enough splits that (splits x query tiles) fills about four blocks per
-    SM; splits are multiples of the summary block when pruning (a pruned
-    block is skipped whole) and of `CUDA_SPLIT_ALIGN` rows otherwise.
+    Enough splits that (splits x query tiles of `CUDA_QUERY_TILE`) fills
+    about two blocks per SM, the most that fit; splits are multiples of
+    the summary block when pruning (a pruned block is skipped whole) and of
+    `CUDA_SPLIT_ALIGN` rows otherwise, and at most `CUDA_MAX_SPLIT_ROWS`.
     """
     align = int(prune_block_rows) if prune_block_rows else CUDA_SPLIT_ALIGN
-    want = max(1, cdiv(4 * n_sms, cdiv(max(q, 1), 8)))
+    want = max(1, cdiv(2 * n_sms, cdiv(max(q, 1), CUDA_QUERY_TILE)))
     split_rows = max(align, round_up(cdiv(max(n, 1), want), align))
+    split_rows = min(split_rows, max(align, CUDA_MAX_SPLIT_ROWS // align
+                                     * align))
     if superblock is not None:
         split_rows = min(split_rows, max(align, round_up(int(superblock),
                                                          align)))
@@ -135,9 +145,7 @@ def streaming_nns_cuda(queries: torch.Tensor, db: torch.Tensor, *,
     if not 1 <= max_candidates <= CUDA_MAX_CANDIDATES:
         raise ValueError(f"streaming_nns: max_candidates {max_candidates} "
                          f"outside 1..{CUDA_MAX_CANDIDATES}")
-    if words % 4 == 0 and db.data_ptr() % 16:
-        raise ValueError("streaming_nns: db must be 16-byte aligned")
-    if q > 8 * 65535:
+    if q > CUDA_QUERY_TILE * 65535:
         raise ValueError(f"streaming_nns: {q} queries exceed the grid")
     limit = n if n_valid is None else max(0, min(int(n_valid), n))
     mask_ptr = prune_ptr = None
@@ -158,16 +166,21 @@ def streaming_nns_cuda(queries: torch.Tensor, db: torch.Tensor, *,
     split_rows, n_splits = split_layout(
         n, q, n_sms, prune_block_rows=prune_block_rows
         if prune_blocks is not None else None, superblock=superblock)
+    if split_rows > CUDA_MAX_SPLIT_ROWS:
+        raise ValueError(f"streaming_nns: prune_block_rows {prune_block_rows}"
+                         f" above {CUDA_MAX_SPLIT_ROWS}")
     k = int(max_candidates)
     keys = torch.empty((q, n_splits, k), dtype=torch.int64, device=dev)
     split_counts = torch.empty((q, n_splits), dtype=torch.int32, device=dev)
+    hist = torch.empty((q, _CUDA_HIST_COLS), dtype=torch.int32, device=dev)
     indices = torch.empty((q, k), dtype=torch.int32, device=dev)
     distances = torch.empty((q, k), dtype=torch.int32, device=dev)
     counts = torch.empty((q,), dtype=torch.int32, device=dev)
     build.STREAMING_NNS.launch(
         queries.data_ptr(), db.data_ptr(), mask_ptr, prune_ptr, q, n, words,
-        limit, int(radius), k, split_rows, n_splits,
+        limit, max(-1, min(int(radius), 32 * words)), k, split_rows, n_splits,
         int(prune_block_rows or 0), nb, keys.data_ptr(),
-        split_counts.data_ptr(), indices.data_ptr(), distances.data_ptr(),
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        split_counts.data_ptr(), hist.data_ptr(), indices.data_ptr(),
+        distances.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     return indices, distances, counts

@@ -109,27 +109,37 @@ def _clustered(rng, n, q, words, device, br=128):
             torch.from_numpy(db.view(np.int32)).to(device))
 
 
+# (words, queries, rows, radius): query counts around the kernel's
+# 128-query tile, row counts off its 64-row tile, radius 0 and radius at or
+# above 32 words (every row matches)
+STREAM_SHAPES = [(8, 37, 9000, 40), (1, 130, 5000, 5), (3, 257, 7001, 20),
+                 (5, 37, 3333, 0), (8, 130, 9000, 256), (3, 37, 2000, 200)]
+
+
 @pytest.mark.parametrize("masked,pruned,superblock", [
     (False, False, None), (True, False, None), (False, True, None),
     (True, True, None), (False, False, 2048), (True, True, 256)])
 @pytest.mark.parametrize("k", [1, 50, 128])
-def test_streaming_nns_equals_plain(cuda, masked, pruned, superblock, k):
+@pytest.mark.parametrize("words,nq,n,radius", STREAM_SHAPES)
+def test_streaming_nns_equals_plain(cuda, masked, pruned, superblock, k,
+                                    words, nq, n, radius):
     rng = np.random.default_rng(11)
-    queries, db = _clustered(rng, 9000, 37, 8, cuda)
+    queries, db = _clustered(rng, n, nq, words, cuda)
     kw = {}
     if masked:
         kw["db_mask"] = torch.rand(db.shape[0], device=cuda) < 0.8
-    if pruned:
+    if pruned:  # sound masks that differ between the queries of a tile
         summary = build_block_summary(db, 128, db_mask=kw.get("db_mask"))
-        kw["prune_blocks"], _ = _prune_mask(queries, summary, 40)
+        kw["prune_blocks"], _ = _prune_mask(queries, summary, radius)
         kw["prune_block_rows"] = 128
-        assert bool(kw["prune_blocks"].any())
+        if radius < 16 * words:
+            assert bool(kw["prune_blocks"].any())
     before = build.STREAMING_NNS.launches
-    got = ops.streaming_nns(queries, db, radius=40, max_candidates=k,
-                            n_valid=8900, superblock=superblock, **kw)
+    got = ops.streaming_nns(queries, db, radius=radius, max_candidates=k,
+                            n_valid=n - 100, superblock=superblock, **kw)
     torch.cuda.synchronize()
     assert build.STREAMING_NNS.launches == before + 1
-    want = ref.streaming_nns_ref(queries, db, 40, k, n_valid=8900,
+    want = ref.streaming_nns_ref(queries, db, radius, k, n_valid=n - 100,
                                  superblock=superblock, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -137,7 +147,9 @@ def test_streaming_nns_equals_plain(cuda, masked, pruned, superblock, k):
 
 
 @pytest.mark.parametrize("case", ["n_valid_zero", "duplicates",
-                                  "radius_overflow", "empty_db"])
+                                  "radius_overflow", "empty_db",
+                                  "radius_zero", "radius_negative",
+                                  "ragged_queries", "one_word"])
 def test_streaming_nns_edge_cases_equal_dense_plan(cuda, case):
     rng = np.random.default_rng(5)
     db = _sigs(rng, 700, 8, cuda)
@@ -149,6 +161,16 @@ def test_streaming_nns_edge_cases_equal_dense_plan(cuda, case):
         queries = db[:4]
     elif case == "radius_overflow":
         radius = 256
+    elif case == "radius_zero":
+        db = db[:7].repeat(100, 1)
+        queries, radius = db[:4], 0
+    elif case == "radius_negative":
+        radius = -1
+    elif case == "ragged_queries":
+        queries = db[:130]
+    elif case == "one_word":
+        db = db[:, :1].contiguous()
+        queries, radius = db[:200], 6
     else:
         db = db[:0]
     stream = fixed_radius_nns(queries, db, radius, 50, scan_block=4096,

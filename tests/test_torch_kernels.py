@@ -224,8 +224,8 @@ def test_streaming_nns_matches_reference(masked, pruned, superblock):
 
 
 def test_split_layout_aligns_and_covers():
-    for n in (1, 300, 4096, 1 << 20, (1 << 20) + 5):
-        for q in (1, 16, 256):
+    for n in (1, 300, 4096, 1 << 20, (1 << 20) + 5, (1 << 24) + 5):
+        for q in (1, 16, 256, 1 << 16):
             for pbr in (None, 128, 4096):
                 for sb in (None, 2048):
                     rows, splits = tsnn.split_layout(
@@ -233,8 +233,70 @@ def test_split_layout_aligns_and_covers():
                     align = pbr or tsnn.CUDA_SPLIT_ALIGN
                     assert rows % align == 0 and rows >= align
                     assert splits * rows >= n > (splits - 1) * rows
+                    assert rows <= tsnn.CUDA_MAX_SPLIT_ROWS
                     if sb is not None:
                         assert rows <= max(align, sb)
+
+
+# ---------------------------------------------------------------------------
+# the +-1 arithmetic of the streaming kernel's tensor-core scan
+# ---------------------------------------------------------------------------
+def _pm1_expand(sigs: np.ndarray) -> np.ndarray:
+    """(n, words) uint32 -> (n, 32 words) int8, the kernel's expansion:
+    byte 32 w + 4 j + b is -1 where bit j + 8 b of word w is set, else +1
+    (`pm1` in csrc/streaming_nns.cu)."""
+    n, words = sigs.shape
+    out = np.empty((n, words, 8, 4), np.int8)
+    for j in range(8):
+        for b in range(4):
+            bit = (sigs >> np.uint32(j + 8 * b)) & np.uint32(1)
+            out[:, :, j, b] = 1 - 2 * bit.astype(np.int8)
+    return out.reshape(n, 32 * words)
+
+
+def _pm1_dot(queries: np.ndarray, db: np.ndarray) -> np.ndarray:
+    """The int32 product of the expanded operands, as the s8 `mma` sums."""
+    return (_pm1_expand(queries).astype(np.int32)
+            @ _pm1_expand(db).astype(np.int32).T)
+
+
+def _bit_pattern_sigs(rng, n, words):
+    special = np.array([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0x80000001,
+                        0xAAAAAAAA, 0x55555555, 1], np.uint32)
+    sigs = _sigs(rng, n, words)
+    sigs[:len(special)] = special[:, None]  # whole rows of one pattern
+    sigs[len(special):2 * len(special)] = rng.choice(special, (len(special),
+                                                               words))
+    return sigs
+
+
+@pytest.mark.parametrize("words", range(1, 9))
+def test_pm1_product_gives_the_hamming_distance(words):
+    rng = np.random.default_rng(100 + words)
+    queries = _bit_pattern_sigs(rng, 20, words)
+    db = _bit_pattern_sigs(rng, 70, words)
+    dot = _pm1_dot(queries, db)
+    assert ((32 * words - dot) % 2 == 0).all()
+    dist = (32 * words - dot) // 2
+    np.testing.assert_array_equal(
+        dist, _np(ref.hamming_distance_ref(_t(queries), _t(db))))
+    np.testing.assert_array_equal(dist, np.asarray(jref.hamming_distance_ref(
+        jnp.asarray(queries), jnp.asarray(db))))
+    np.testing.assert_array_equal(dist, np.asarray(hamming_distances_pallas(
+        jnp.asarray(queries), jnp.asarray(db),
+        block_n=jops._hamming_block_n(db.shape[0]), interpret=True)))
+    assert dist[0, 1] == 32 * words  # all zeros vs all ones
+
+
+@pytest.mark.parametrize("words", [1, 3, 8])
+def test_pm1_threshold_is_the_radius_test(words):
+    rng = np.random.default_rng(words)
+    queries = _bit_pattern_sigs(rng, 20, words)
+    db = _bit_pattern_sigs(rng, 40, words)
+    dot = _pm1_dot(queries, db)
+    dist = _np(ref.hamming_distance_ref(_t(queries), _t(db)))
+    for r in range(-1, 32 * words + 2):
+        np.testing.assert_array_equal(dot >= 32 * words - 2 * r, dist <= r)
 
 
 # ---------------------------------------------------------------------------
