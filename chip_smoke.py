@@ -6,15 +6,19 @@
 1. Builds the five CUDA kernels from `src/repro_torch/kernels/csrc`.
 2. Phase A: the paper's YoutubeDNN/MovieLens engine (3000 items, seeded
    random weights, 128 hot rows per table) serves 256-query batches through
-   `RecSysEngine.serve` on the dense plan (Hamming kernel + stable top-K).
+   `RecSysEngine.serve` on the dense plan (Hamming kernel + stable top-K);
+   each stage pools its tables in one grouped embedding-pool launch, so
+   the pool launches twice a batch.
 3. Phase B: the same model with a 1,048,576-item catalog (32 MB int8 table
    and 32 MB of signatures on the card) serves on the auto-routed, pruned
    streaming plan.
    Each phase zeroes the kernels' launch counters just before its serve
    loop and reads them just after. Its outputs are checked: shapes, ranges,
    finite scores, equality with the plain PyTorch versions on the card
-   (`REPRO_TORCH_<OP>=torch`), and the NNS candidates of a CPU engine
-   built from the same weights, given the card's query signatures.
+   (`REPRO_TORCH_<OP>=torch`; cache counters included), and the NNS
+   candidates of a CPU engine built from the same weights, given the
+   card's query signatures. Then the host-clock time of each stage, and
+   `torch.profiler` over one serve step (kernels, device time, idle share).
 4. Phase D: Qwen3-8B at full width and all 36 layers in bfloat16 (random
    weights from a seeded CUDA generator), batch 4, 2048 prompt tokens, 16
    generated, int8 KV cache. D.1 `LMServingEngine.generate`, the entry
@@ -31,22 +35,29 @@
    Then `torch.profiler` traces one blocked prefill, one flash prefill and
    one decode step: kernels run, device time, and the idle share.
 5. Phase C: each kernel against its plain version on the card at the
-   phases' shapes (the streaming kernel also masked, unpruned, with a
-   `superblock` override and against the dense plan; flash also in float32
-   with a ragged kv length and `q_offset`); integer outputs and the int8
-   matmul must be equal, the pool within 1e-5 relative, flash within 2e-2
-   (bf16) and 2e-5 (f32); the flash kernel is also timed in float32 at
-   phase D's shape (its CUDA-core path). Kernel times are CUDA-event means
-   over back-to-back launches queued behind a spin (warm L2, as in the serve
-   loop); the wall time per call, host included, goes to the record as
-   `call_ms`. `library_ms` times one PyTorch call of the same function
-   where there is one (`scaled_dot_product_attention`; `torch._int_mm`
-   and the two scale multiplies, with W in both layouts, (k, n) row-major
-   and the K-major view of its transpose, the faster kept); the port never
-   calls either. The streaming kernel's bound is the faster of its two
-   engines (the +-1 int8 product on the tensor cores, or XOR-popcount on
-   the CUDA cores), and one informative line times `torch._int_mm` on the
-   +-1-expanded operands: the distance product alone, without selection.
+   phases' shapes: the Hamming kernel at phase A's shape and at the largest
+   dense catalog (262,143 rows), beside its bytes bound and the POPC floor
+   of any CUDA-core design; the grouped pool at phase A's lookup-stage and
+   rank-stage segment lists (one launch each; device and wall time a call)
+   and as the single-table public op; the streaming kernel also masked,
+   unpruned, with a `superblock` override and against the dense plan;
+   flash also in float32 with a ragged kv length and `q_offset`. Integer
+   outputs, the pool (counters included) and the int8 matmul must be
+   equal, flash within 2e-2 (bf16) and 2e-5 (f32); the flash kernel is
+   also timed in float32 at phase D's shape (its CUDA-core path). Kernel
+   times are CUDA-event means over back-to-back launches queued behind a
+   spin (warm L2, as in the serve loop); the wall time per call, host
+   included, goes to the record as `call_ms`. `library_ms` times one
+   PyTorch call of the same function where there is one
+   (`scaled_dot_product_attention`; `torch._int_mm` and the two scale
+   multiplies, with W in both layouts, (k, n) row-major and the K-major
+   view of its transpose, the faster kept); the port never calls either.
+   The streaming kernel's bound is the faster of its two engines (the +-1
+   int8 product on the tensor cores, or XOR-popcount on the CUDA cores).
+   Informative lines the port never calls: `torch._int_mm` on the
+   +-1-expanded operands of the streaming and Hamming kernels (the
+   distance product alone), and `F.embedding_bag` over the dequantized f32
+   tables of the lookup stage.
 
 Prints one line per kernel, the card's name and power limit, a `kernels`
 JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
@@ -81,6 +92,10 @@ CUDA_CORE_OPS_PER_S = 67e12
 # and the int8 products are bounded by
 BF16_TC_FLOPS = 989e12
 INT8_TC_OPS = 1979e12
+# the CUDA cores' popcount rate: `POPC` issues at 16 a clock per SM on
+# sm_90 (132 SMs at the 1.98 GHz boost clock), the floor of any XOR-popcount
+# Hamming design
+POPC_PER_S = 132 * 16 * 1.98e9
 BATCH = 256
 N_BATCHES_A = 4
 N_BATCHES_B = 3
@@ -373,6 +388,17 @@ def device_profile(fn) -> dict:
             "top": [(name[:80], len(v), sum(v) / 1e3) for name, v in top]}
 
 
+def serve_profile(engine, batch, ops) -> dict:
+    """One serve step of `batch` under `torch.profiler` (after a warm-up):
+    `device_profile`'s kernels, device time and idle share, and the
+    launches of the port's kernels in it."""
+    engine.serve(batch)
+    ops.reset_launches()
+    prof = device_profile(lambda: engine.serve(batch))
+    prof["launches"] = sum(ops.launch_counts().values())
+    return prof
+
+
 def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
     """Phase D; returns its record and the int8 operands it drove. After
     the checked runs it profiles a blocked prefill, a flash prefill and a
@@ -588,6 +614,163 @@ def pm1_product_ms(qs, db, ref) -> tuple[float, bool]:
     return ms, ok
 
 
+def plain_hamming(ref, qs, db, chunk=1 << 15):
+    """The plain Hamming distances, a slice of rows at a time."""
+    return torch.cat([ref.hamming_distance_ref(qs, db[i:i + chunk])
+                      for i in range(0, db.shape[0], chunk)], dim=1)
+
+
+def hamming_entry(qa, db_a, db_max, ops, ref, launches: int) -> dict:
+    """Phase C for the Hamming kernel: bit-equal to the plain version at
+    phase A's shape and at the largest dense catalog (`db_max`), each
+    timed beside its bound (the int32 output's bytes; the +-1 product on
+    the int8 tensor cores is below them) and the POPC floor of any
+    CUDA-core design. Informative: `torch._int_mm` on the +-1 operands
+    (the product alone; its n must be a multiple of 8)."""
+    q, w = qa.shape
+    shapes = {}
+    for name, db in (("phase_a", db_a), ("dense_max", db_max)):
+        n = db.shape[0]
+        check(torch.equal(ops._hamming_cuda(qa, db),
+                          plain_hamming(ref, qa, db)),
+              f"hamming kernel ({name}) != plain")
+        bnd, by = bound(4 * (q * w + n * w + q * n), 2 * q * n * 32 * w,
+                        INT8_TC_OPS)
+        reps = 200 if n < 10_000 else 20
+        prod_ms, prod_ok = pm1_product_ms(qa, db[:n // 8 * 8], ref)
+        check(prod_ok, f"+-1 _int_mm distances ({name}) != plain")
+        shapes[name] = {
+            "shape": f"q={q} n={n} words={w}",
+            "ms": timed_ms(lambda: ops._hamming_cuda(qa, db), reps),
+            "call_ms": call_ms(lambda: ops._hamming_cuda(qa, db), reps),
+            "plain_ms": timed_ms(lambda: plain_hamming(ref, qa, db), 3),
+            "bound_ms": bnd, "bound_by": by,
+            "popc_floor_ms": q * n * w / POPC_PER_S * 1e3,
+            "pm1_int_mm_ms": prod_ms}
+    main = shapes["phase_a"]
+    return {"name": "hamming_distances", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hamming.cu",
+            "replaces": "src/repro/kernels/hamming_nns.py:57",
+            "launches": launches, "max_abs_err": 0.0,
+            **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "shape")},
+            "library_ms": None, "extra": shapes}
+
+
+def pool_stage_bytes_ops(plan, ids, valid) -> tuple[int, int]:
+    """What a grouped pool must move and compute for these inputs: per
+    live slot an int8 row and its f32 scale, and (v * s) * w + acc per
+    column; every id read once, every output row written once."""
+    n_bytes = n_ops = 0
+    for seg, x in zip(plan.segments, ids):
+        if valid is not None and seg.masked:
+            x = torch.where(valid[:, None], x, -1)
+        d = seg.values.shape[1]
+        live = int((x >= 0).sum())
+        rows = x.numel() if seg.mode == "rows" else x.shape[0]
+        n_bytes += live * (d + 4) + 4 * x.numel() + 4 * rows * d
+        n_ops += 3 * live * d
+    return n_bytes, n_ops
+
+
+def pool_entry(eng, batch, cand, ops, ref, launches: int) -> dict:
+    """Phase C for the grouped pool kernel, at phase A's lookup and rank
+    stages (one launch each, bit-equal to the plain version with equal
+    counters), and the single-table public op (genre, history,
+    weighted history; bit-equal). Informative: `F.embedding_bag` over the
+    dequantized f32 tables, the library's nearest call (the port never
+    calls it)."""
+    from repro_torch.core.quantization import dequantize_rowwise
+
+    b = eng.batch_to_device(batch)
+    valid = b.get("valid")
+    dev = cand.device
+    B, N = cand.shape
+    names = sorted(eng.cfg.user_features)
+    stages = {
+        "lookup": (eng.lookup_plan, [b[k][:, None] for k in names]
+                   + [b["history"]],
+                   lambda: [torch.empty((B, eng.lookup_plan.width),
+                                        device=dev)] * (len(names) + 1)),
+        "rank": (eng.rank_plan, [cand, b["genre"][:, None]],
+                 lambda: [torch.empty((B, N, eng.rank_plan.width),
+                                      device=dev),
+                          torch.empty((B, eng.genre_table_q.values.shape[1]),
+                                      device=dev)])}
+    out = {}
+    for name, (plan, ids, new_outs) in stages.items():
+        got, want = new_outs(), new_outs()
+        for o in got + want:
+            o.fill_(-7.0)
+        c_got = plan.launch(ids, got, valid)
+        c_want = ref.grouped_pool_ref(plan.segments, ids, want, valid)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"grouped pool ({name} stage) != plain")
+        check(torch.equal(c_got, c_want),
+              f"grouped pool ({name} stage) counters != plain")
+        bnd, by = bound(*pool_stage_bytes_ops(plan, ids, valid))
+        outs = new_outs()
+        out[name] = {
+            "shape": ", ".join(
+                f"{seg.mode} {tuple(x.shape)} of {seg.values.shape[0]}x"
+                f"{seg.values.shape[1]}" for seg, x in zip(plan.segments,
+                                                          ids)),
+            "ms": timed_ms(lambda: plan.launch(ids, outs, valid), 200),
+            "call_ms": call_ms(lambda: ops.grouped_pool(plan, ids, outs,
+                                                        valid), 200),
+            "plain_ms": timed_ms(lambda: ref.grouped_pool_ref(
+                plan.segments, ids, outs, valid), 20),
+            "bound_ms": bnd, "bound_by": by,
+            "counters": [int(c) for c in c_got]}
+
+    # the public op: one segment a launch
+    gt, it = eng.genre_table_q, eng.item_table_q
+    hw = torch.rand(b["history"].shape, device=dev)
+    genre_ids = b["genre"][:, None]
+    for table, ids, wts in ((gt, genre_ids, None), (it, b["history"], None),
+                            (it, b["history"], hw)):
+        check(torch.equal(ops.embedding_pool(table.values, table.scales, ids,
+                                             wts),
+                          ref.embedding_pool_ref(table.values, table.scales,
+                                                 ids, wts)),
+              "embedding_pool op != plain")
+    out["genre_op"] = {
+        "shape": f"B={B} L=1 n={gt.values.shape[0]} d={gt.values.shape[1]}",
+        "ms": timed_ms(lambda: ops.embedding_pool(
+            gt.values, gt.scales, genre_ids), 200),
+        "call_ms": call_ms(lambda: ops.embedding_pool(
+            gt.values, gt.scales, genre_ids), 200)}
+
+    # informative: F.embedding_bag over the dequantized f32 tables, -1 ids
+    # sent to an appended zero row that `padding_idx` leaves out
+    def f32_bag(table, ids, mode):
+        w = torch.cat([dequantize_rowwise(table),
+                       torch.zeros((1, table.values.shape[1]), device=dev)])
+        x = torch.where(ids >= 0, ids, w.shape[0] - 1).long()
+        return (lambda: F.embedding_bag(x, w, mode=mode,
+                                        padding_idx=w.shape[0] - 1))
+
+    bags = [f32_bag(eng.tables_q[k], b[k][:, None], "sum") for k in names]
+    bags.append(f32_bag(it, b["history"], "mean"))
+    lib = torch.cat([f() for f in bags], dim=-1)
+    ours = torch.empty((B, eng.lookup_plan.width), device=dev)
+    ops.grouped_pool(eng.lookup_plan, stages["lookup"][1], [ours] * len(bags),
+                     valid)
+    out["embedding_bag_f32"] = {
+        "lookup_stage_ms": timed_ms(lambda: [f() for f in bags], 50),
+        "history_ms": timed_ms(bags[-1], 200),
+        "max_abs_diff_vs_kernel": float((lib - ours).abs().max())}
+
+    main = out["lookup"]
+    return {"name": "embedding_pool", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_pool.cu",
+            "replaces": "src/repro/kernels/embedding_pool.py:68",
+            "launches": launches, "max_abs_err": 0.0,
+            **{k: main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "shape")},
+            "library_ms": None, "extra": out}
+
+
 def int8_entry(operands: dict, ops, ref, launches: int):
     """Phase C for the int8 matmul: bit-equal at both shapes; timed at the
     MLP up-projection."""
@@ -643,6 +826,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.core.lsh import lsh_signature, make_lsh_projections
     from repro_torch.core.nns import (
+        STREAM_MIN_ITEMS,
         _plan_streams,
         _prune_mask,
         fixed_radius_nns,
@@ -686,9 +870,10 @@ def main(argv=None) -> int:
     a["stage_ms"] = stage_ms(eng_a, batches_a[0], rs_mod)
     check(a["launches"]["hamming_distances"] == N_BATCHES_A,
           f"phase A launches {a['launches']}")
-    check(a["launches"]["embedding_pool"] == N_BATCHES_A,
-          f"phase A launches {a['launches']}")
+    check(a["launches"]["embedding_pool"] == 2 * N_BATCHES_A,
+          f"phase A launches {a['launches']} (one pool launch a stage)")
     check(a["launches"]["streaming_nns"] == 0, "phase A streamed")
+    a["profile"] = serve_profile(eng_a, batches_a[0], ops)
     print(f"phase A (dense, {cfg.n_items} items): "
           f"{a['ms_per_batch']:.3f} ms/batch of {BATCH}, "
           f"{a['queries_per_s']:.0f} q/s, launches {a['launches']}, "
@@ -715,9 +900,10 @@ def main(argv=None) -> int:
     b["stage_ms"] = stage_ms(eng_b, batches_b[0], rs_mod)
     check(b["launches"]["streaming_nns"] == N_BATCHES_B,
           f"phase B launches {b['launches']}")
-    check(b["launches"]["embedding_pool"] == N_BATCHES_B,
-          f"phase B launches {b['launches']}")
+    check(b["launches"]["embedding_pool"] == 2 * N_BATCHES_B,
+          f"phase B launches {b['launches']} (one pool launch a stage)")
     check(b["launches"]["hamming_distances"] == 0, "phase B went dense")
+    b["profile"] = serve_profile(eng_b, batches_b[0], ops)
     touched = b["results"][0].nns.blocks_touched
     b["blocks_touched_mean"] = float(touched.float().mean())
     b["summary_blocks"] = eng_b.block_summary.n_blocks
@@ -746,6 +932,12 @@ def main(argv=None) -> int:
           f"{lm_rec['int8_rel_err_vs_bf16']:.4f}, max memory allocated "
           f"{lm_rec['max_memory_allocated']} B", flush=True)
 
+    for name, prof in (("A", a["profile"]), ("B", b["profile"])):
+        print(f"phase {name} profile, one serve step: {prof['kernels']} "
+              f"kernels ({prof['launches']} of the port's), "
+              f"{prof['device_ms']:.3f} ms on the card in "
+              f"{prof['wall_ms']:.3f} ms (idle share {prof['idle_share']}), "
+              f"top {prof['top'][:3]}", flush=True)
     for name, prof in lm_rec["profile"].items():
         print(f"phase D profile, {name}: {prof['kernels']} kernels, "
               f"{prof['device_ms']:.1f} ms on the card in {prof['wall_ms']:.1f}"
@@ -755,63 +947,19 @@ def main(argv=None) -> int:
     # -- phase C: each kernel against its plain version ---------------------
     kernels = []
 
-    # Hamming at phase A's shapes: 256 query signatures x 3000 items
+    # Hamming at phase A's shapes (256 query signatures x 3000 items) and at
+    # the largest dense catalog (STREAM_MIN_ITEMS - 1 rows)
     qa = lsh_signature(eng_a.user_embedding(batches_a[0]), eng_a.lsh_proj)
-    db_a = eng_a.item_sigs
-    got = ops._hamming_cuda(qa, db_a)
-    want = ref.hamming_distance_ref(qa, db_a)
-    check(torch.equal(got, want), "hamming kernel != plain")
-    q, w = qa.shape
-    n = db_a.shape[0]
-    bnd, by = bound(4 * (q * w + n * w + q * n), 3 * q * n * w)
-    kernels.append({
-        "name": "hamming_distances", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/hamming.cu",
-        "replaces": "src/repro/kernels/hamming_nns.py:57",
-        "launches": a["launches"]["hamming_distances"]
-        + b["launches"]["hamming_distances"],
-        "max_abs_err": 0.0,
-        "ms": timed_ms(lambda: ops._hamming_cuda(qa, db_a), 200),
-        "call_ms": call_ms(lambda: ops._hamming_cuda(qa, db_a), 200),
-        "plain_ms": timed_ms(lambda: ref.hamming_distance_ref(qa, db_a), 20),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "shape": f"q={q} n={n} words={w}"})
+    kernels.append(hamming_entry(
+        qa, eng_a.item_sigs, eng_b.item_sigs[:STREAM_MIN_ITEMS - 1], ops,
+        ref, a["launches"]["hamming_distances"]
+        + b["launches"]["hamming_distances"]))
 
-    # embedding pool: the rank stage's genre bag (18 x 32 table, L = 1),
-    # and a weighted, -1 padded history-shaped bag (3000 x 32, L = 20)
-    genre_ids = eng_a.batch_to_device(batches_a[0])["genre"][:, None]
-    gt = eng_a.genre_table_q
-    hist = eng_a.batch_to_device(batches_a[0])["history"]
-    hw = torch.rand(hist.shape, generator=gen).to(device)
-    it = eng_a.item_table_q
-    pool_err = 0.0
-    for table, ids, wts in ((gt, genre_ids, None), (it, hist, None),
-                            (it, hist, hw)):
-        got = ops._embedding_pool_cuda(table.values, table.scales, ids, wts)
-        want = ref.embedding_pool_ref(table.values, table.scales, ids, wts)
-        err = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=POOL_RTOL, atol=1e-7),
-              f"embedding_pool kernel != plain (max abs err {err})")
-        pool_err = max(pool_err, err)
-    B, L = genre_ids.shape
-    d = gt.values.shape[1]
-    slots = int((genre_ids >= 0).sum())
-    bnd, by = bound(slots * (d + 4) + 4 * B * L + 4 * B * d, 3 * slots * d)
-    kernels.append({
-        "name": "embedding_pool", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/embedding_pool.cu",
-        "replaces": "src/repro/kernels/embedding_pool.py:68",
-        "launches": a["launches"]["embedding_pool"]
-        + b["launches"]["embedding_pool"],
-        "max_abs_err": pool_err,
-        "ms": timed_ms(lambda: ops._embedding_pool_cuda(
-            gt.values, gt.scales, genre_ids), 200),
-        "call_ms": call_ms(lambda: ops._embedding_pool_cuda(
-            gt.values, gt.scales, genre_ids), 200),
-        "plain_ms": timed_ms(lambda: ref.embedding_pool_ref(
-            gt.values, gt.scales, genre_ids), 50),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "shape": f"B={B} L={L} n={gt.values.shape[0]} d={d}"})
+    # embedding pool: the lookup and rank stages' segment lists of phase A
+    # (one grouped launch each), and the single-table public op
+    kernels.append(pool_entry(
+        eng_a, batches_a[0], a["results"][0].nns.indices, ops, ref,
+        a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]))
 
     # streaming NNS at phase B's shapes: 256 queries x 1,048,576 items
     qb = lsh_signature(eng_b.user_embedding(batches_b[0]), eng_b.lsh_proj)
@@ -905,6 +1053,9 @@ def main(argv=None) -> int:
               + "".join(f", {key} {kern[key]}" for key in
                         ("rate", "f32_ms", "library_layouts_ms")
                         if key in kern), flush=True)
+        for key, val in kern.get("extra", {}).items():
+            print(f"kernel {kern['name']}, {key}: {json.dumps(val)}",
+                  flush=True)
 
     for phase in (a, b):
         phase.pop("results")

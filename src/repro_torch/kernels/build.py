@@ -161,9 +161,9 @@ def launch_counts() -> dict[str, int]:
 
 
 HAMMING = CudaKernel("hamming_distances", "hamming.cu",
-                     [P, P, P, I, I, I, P])
+                     [P, P, P, I, I, I, I, P])
 EMBEDDING_POOL = CudaKernel("embedding_pool", "embedding_pool.cu",
-                            [P, P, P, P, P, I, I, I, I, P])
+                            [P, P, I, P, P, P])
 STREAMING_NNS = CudaKernel("streaming_nns", "streaming_nns.cu",
                            [P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                             P, P, P, P, P, P, P])

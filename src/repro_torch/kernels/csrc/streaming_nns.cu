@@ -7,21 +7,19 @@
 //           streaming plan of `core/nns.py:fixed_radius_nns`.
 // Bound on the H100: the distance work, the least of two engines. On the
 //           int8 tensor cores it is 2 q n 32W operations (the +-1 product
-//           below) at 1,979 TOP/s; on the CUDA cores 3 q n W integer
-//           operations (XOR, popcount, add) at 67 T/s. The first is the
-//           lower: 0.069 ms against 0.096 ms at 256 queries x 1,048,576
-//           rows of 8 words. The bytes (each row of 4W bytes read once)
-//           are far below either, and the candidate buffers are tiny.
-// The +-1 identity: a bit b maps to the int8 1 - 2b (0 -> +1, 1 -> -1).
-//           For two signatures of 32W bits, dot(a+-, b+-) = 32W - 2 ham(a,
+//           below) at 1,979 TOP/s: 0.069 ms at 256 queries x 1,048,576
+//           rows of 8 words. On the CUDA cores it is q n W popcounts, and
+//           `POPC` issues at 16 a clock per SM (132 SMs at 1.98 GHz: 4.18
+//           T/s): 0.51 ms, so no CUDA-core design comes near the tensor
+//           cores. The bytes (each row of 4W bytes read once) are far below
+//           either, and the candidate buffers are tiny.
+// The +-1 identity (csrc/pm1.cuh): a bit b maps to the int8 1 - 2b, and
+//           for two signatures of 32W bits dot(a+-, b+-) = 32W - 2 ham(a,
 //           b), an exact integer product. So a row matches iff
 //           dot >= 32W - 2 radius, with no division, and its distance is
-//           (32W - dot) / 2. The bit order of the expansion is free as long
-//           as queries and rows share it: byte b of expanded word j of a
-//           32-bit word w is bit j + 8b of w (`pm1`: a shift, a `prmt`
-//           that replicates each byte's top bit, an OR), and each packed
-//           word is one k32 step of `mma.sync.m16n8k32.s8`, so any W in
-//           1..8 needs no padding of K.
+//           (32W - dot) / 2. Each packed word is one k32 step of
+//           `mma.sync.m16n8k32.s8` (`pm1` expands it), so any W in 1..8
+//           needs no padding of K.
 // Design:   the TPU walks the DB in order with one resident buffer; here
 //           blocks run in parallel: pass 0, pass 1, then a merge.
 //   Pass 1: block (split, query tile) holds 128 queries, 4 warps of 32
@@ -93,6 +91,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "pm1.cuh"
 
 namespace {
 
@@ -142,19 +141,9 @@ __device__ __forceinline__ void warp_sort(T* s, int N, int lane) {
   }
 }
 
-// Four +-1 bytes of `w`: byte b is -1 (0xff) where bit j + 8b is set, +1
-// where it is clear. The shift brings bit j + 8b to the top of byte b,
-// `prmt` replicates each byte's top bit over the byte (selector nibbles
-// with bit 3 set), and the OR turns 0x00 into +1.
-__device__ __forceinline__ uint32_t pm1(uint32_t w, int j) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, 0xBA98;" : "=r"(r) : "r"(w << (7 - j)), "r"(0u));
-  return r | 0x01010101u;
-}
-
 template <int W>
 struct ScanLayout {
-  static constexpr int kLd = 32 * W + 16;  // bytes per expanded row
+  static constexpr int kLd = repro::pm1_row_bytes<W>();
   static constexpr int kTile = kNTile * kLd;
   static constexpr int kLoads = (kNTile * W + kScanThreads - 1) / kScanThreads;
 };
@@ -231,23 +220,6 @@ __device__ __forceinline__ void load_tile(uint32_t (&r)[L],
   }
 }
 
-// The words of `load_tile`, expanded to +-1 bytes, into a K-major tile.
-template <int W, int L>
-__device__ __forceinline__ void expand_tile(uint8_t* x,
-                                            const uint32_t (&r)[L], int tid) {
-  constexpr int kLd = 32 * W + 16;
-#pragma unroll
-  for (int m = 0; m < L; ++m) {
-    const int e = tid + kScanThreads * m;
-    if (e < kNTile * W) {
-      uint4* dst = reinterpret_cast<uint4*>(x + (e / W) * kLd + 32 * (e % W));
-      const uint32_t v = r[m];
-      dst[0] = make_uint4(pm1(v, 0), pm1(v, 1), pm1(v, 2), pm1(v, 3));
-      dst[1] = make_uint4(pm1(v, 4), pm1(v, 5), pm1(v, 6), pm1(v, 7));
-    }
-  }
-}
-
 // Put `key` at the root of the max-heap h[0, n) and sift it down.
 __device__ __forceinline__ void sift_down(uint32_t* h, int n, uint32_t key) {
   int i = 0;
@@ -316,26 +288,6 @@ __device__ __forceinline__ bool row_penalty(int (&pen)[2][2], int2 tile,
   return true;
 }
 
-// B fragments of k steps s and s + 1 (only s when s + 1 == W) for the
-// group's 2 n8 tiles.
-template <int W>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2][4], uint32_t xs,
-                                       int s) {
-  constexpr int kLd = 32 * W + 16;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const uint32_t addr = xs + 8 * j * kLd + 32 * s;
-    if (s + 1 < W) {
-      repro::ldmatrix_x4(b[j], addr);
-    } else {
-      uint32_t b2[2];
-      repro::ldmatrix_x2(b2, addr);
-      b[j][0] = b2[0];
-      b[j][1] = b2[1];
-    }
-  }
-}
-
 // One 16-row group of DB rows against the warp's 32 queries: 2 n8 tiles
 // x 2 m16 tiles. acc[j][i][e] ends at dot - thr - pen for query row
 // 16 i + 8 (e / 2) + g of the warp and DB row 8 j + 2 t4 + e % 2 of the
@@ -355,10 +307,10 @@ __device__ __forceinline__ void group_mma(int (&acc)[2][2][4],
   // waits neither on an `ldmatrix` nor on the `mma` just issued (the asm
   // statements keep their order)
   uint32_t b[2][2][4];  // [pair parity][j][fragment]
-  load_b<W>(b[0], xs, 0);
+  repro::load_b<W>(b[0], xs, 0);
 #pragma unroll
   for (int s = 0; s < W; s += 2) {
-    if (s + 2 < W) load_b<W>(b[((s >> 1) + 1) & 1], xs, s + 2);
+    if (s + 2 < W) repro::load_b<W>(b[((s >> 1) + 1) & 1], xs, s + 2);
     const uint32_t(&bb)[2][4] = b[(s >> 1) & 1];
 #pragma unroll
     for (int step = 0; step < 2; ++step) {
@@ -443,8 +395,8 @@ scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ db,
       for (int s = 0; s < W; ++s) {
         const uint32_t v =
             row < nq ? __ldg(q + static_cast<size_t>(row) * W + s) : 0u;
-        a[i][s][h] = pm1(v, t4);
-        a[i][s][2 + h] = pm1(v, t4 + 4);
+        a[i][s][h] = repro::pm1(v, t4);
+        a[i][s][2 + h] = repro::pm1(v, t4 + 4);
       }
     }
   }
@@ -460,17 +412,18 @@ scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ db,
   uint32_t r[Lay::kLoads];
   int2 cur = tiles.next();
   load_tile<W>(r, db, cur, tid);
-  expand_tile<W>(smem, r, tid);
+  repro::expand_tile<W, kNTile, kScanThreads>(smem, r, tid);
   int2 nxt = tiles.next();
   load_tile<W>(r, db, nxt, tid);
   int filled = 0;  // valid keys in the heap of this lane's query
 
   // lane l of ldmatrix gives row l % 8 of matrix l / 8: 16 k bytes each
-  const uint32_t lm_off = (lane & 7) * Lay::kLd + 16 * (lane >> 3);
+  const uint32_t lm_off = repro::ldmatrix_lane_offset<W>(lane);
   for (int it = 0; cur.x >= 0; ++it) {
     __syncthreads();  // tile `cur` expanded; the other buffer free
     if (nxt.x >= 0)
-      expand_tile<W>(smem + ((it + 1) & 1) * Lay::kTile, r, tid);
+      repro::expand_tile<W, kNTile, kScanThreads>(
+          smem + ((it + 1) & 1) * Lay::kTile, r, tid);
     const int2 after = tiles.next();
     load_tile<W>(r, db, after, tid);  // in flight while `cur` computes
 

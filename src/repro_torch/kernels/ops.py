@@ -12,6 +12,7 @@ Signatures mirror `repro/kernels/ops.py`.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -19,11 +20,13 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import check_tensor as _check
 from repro_torch.kernels.build import launch_counts, reset_launches
+from repro_torch.kernels.ref import PoolSegment
 from repro_torch.kernels.streaming_nns import streaming_nns_cuda
 
-__all__ = ["embedding_pool", "flash_attention", "flash_attention_bhsd",
-           "hamming_distances", "int8_matmul", "streaming_nns",
-           "launch_counts", "reset_launches", "use_kernel"]
+__all__ = ["PoolPlan", "PoolSegment", "embedding_pool", "flash_attention",
+           "flash_attention_bhsd", "grouped_pool", "hamming_distances",
+           "int8_matmul", "streaming_nns", "launch_counts", "reset_launches",
+           "use_kernel"]
 
 _MODES = ("cuda", "torch")
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in flash_attention.cu
@@ -31,6 +34,13 @@ _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # int8_matmul.cu sums in int32: |x w| <= 128 * 128 a term, so k * 2**14
 # stays below 2**31 for k up to this
 _INT8_MAX_K = 2**31 // 2**14 - 1
+# hamming.cu: 64-query tiles on the grid's y extent, 64-row tiles indexed
+# in int32
+_HAMMING_MAX_Q = 65535 * 64
+_HAMMING_MAX_N = 2**31 - 1 - 64
+# embedding_pool.cu: segments a launch, and int64 fields a segment per call
+_POOL_MAX_SEGMENTS = 8
+_POOL_CALL_FIELDS = 7
 
 
 def use_kernel(name: str, t: torch.Tensor) -> bool:
@@ -54,46 +64,154 @@ def _hamming_cuda(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     n, words2 = db.shape
     if words != words2 or not 1 <= words <= 8:
         raise ValueError(f"hamming_distances: words {words} vs {words2}")
-    if words % 4 == 0 and db.data_ptr() % 16:
-        raise ValueError("hamming_distances: db must be 16-byte aligned")
-    if q > 8 * 65535:
-        raise ValueError(f"hamming_distances: {q} queries exceed the grid")
-    out = torch.empty((q, n), dtype=torch.int32, device=dev)
+    if q > _HAMMING_MAX_Q or n > _HAMMING_MAX_N:
+        raise ValueError(f"hamming_distances: {q} queries x {n} rows exceed "
+                         f"the grid ({_HAMMING_MAX_Q} x {_HAMMING_MAX_N})")
+    # rows padded to 16 bytes, so that the kernel's row stores all align;
+    # the result is the (q, n) view
+    ld = -(-n // 4) * 4
+    out = torch.empty((q, ld), dtype=torch.int32, device=dev)
     build.HAMMING.launch(queries.data_ptr(), db.data_ptr(), out.data_ptr(),
-                         q, n, words,
+                         q, n, ld, words,
                          torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    return out if ld == n else out[:, :n]
 
 
-def _embedding_pool_cuda(table_values, table_scales, ids, weights=None):
-    dev = table_values.device
-    op = "embedding_pool"
-    _check(op, table_values, "table_values", torch.int8, dev)
-    _check(op, table_scales, "table_scales", torch.float32, dev)
-    _check(op, ids, "ids", torch.int32, dev)
-    n, d = table_values.shape
-    B, L = ids.shape
-    if table_scales.shape != (n, 1):
-        raise ValueError(f"{op}: table_scales {tuple(table_scales.shape)}")
-    w_ptr = None
-    if weights is not None:
-        _check(op, weights, "weights", torch.float32, dev)
-        if weights.shape != ids.shape:
-            raise ValueError(f"{op}: weights {tuple(weights.shape)}")
-        w_ptr = weights.data_ptr()
-    out = torch.empty((B, d), dtype=torch.float32, device=dev)
-    build.EMBEDDING_POOL.launch(
-        table_values.data_ptr(), table_scales.data_ptr(), ids.data_ptr(),
-        w_ptr, out.data_ptr(), n, d, B, L,
-        torch.cuda.current_stream(dev).cuda_stream)
-    return out
+class PoolPlan:
+    """A serve stage's pool segments (`ref.PoolSegment`), checked once, with
+    the kernel's fixed descriptor (table and hot-set pointers, shapes,
+    modes, columns) packed once: a call adds only its ids, weights and
+    outputs. The plan holds its tables, so the pointers stay valid."""
+
+    def __init__(self, segments):
+        segments = tuple(segments)
+        if not 1 <= len(segments) <= _POOL_MAX_SEGMENTS:
+            raise ValueError(f"embedding_pool: {len(segments)} segments "
+                             f"(1 to {_POOL_MAX_SEGMENTS})")
+        dev = segments[0].values.device
+        fields = []
+        for seg in segments:
+            self._check_segment(seg, dev)
+            n, d = seg.values.shape
+            hot = seg.hot_ids is not None and seg.hot_ids.shape[0] > 0
+            fields += [seg.values.data_ptr(), seg.scales.data_ptr(),
+                       seg.hot_ids.data_ptr() if hot else 0,
+                       seg.hot_rows.data_ptr() if hot else 0, n, d,
+                       seg.hot_ids.shape[0] if hot else 0,
+                       int(seg.mode == "mean"), seg.column, int(seg.counted),
+                       int(seg.masked)]
+        self.segments = segments
+        self.device = dev
+        self._index = segments[0].values.get_device()
+        self._ends = [seg.column + seg.values.shape[1] for seg in segments]
+        self._rows = [seg.mode == "rows" for seg in segments]
+        self._masked = [seg.masked for seg in segments]
+        # the widest output row the segments write (columns 0..width)
+        self.width = max(self._ends)
+        self.counted = any(seg.counted for seg in segments)
+        self.static = (ctypes.c_int64 * len(fields))(*fields)
+        self._call_type = ctypes.c_int64 * (_POOL_CALL_FIELDS * len(segments))
+
+    @staticmethod
+    def _check_segment(seg, dev):
+        op = "embedding_pool"
+        _check(op, seg.values, "values", torch.int8, dev)
+        _check(op, seg.scales, "scales", torch.float32, dev)
+        n, d = seg.values.shape
+        if n < 1 or d < 1 or seg.scales.shape != (n, 1):
+            raise ValueError(f"{op}: values {tuple(seg.values.shape)}, "
+                             f"scales {tuple(seg.scales.shape)}")
+        if seg.mode not in ref.POOL_MODES or seg.column < 0:
+            raise ValueError(f"{op}: mode {seg.mode!r}, column {seg.column}")
+        if seg.hot_ids is not None and seg.hot_ids.shape[0] > 0:
+            _check(op, seg.hot_ids, "hot_ids", torch.int32, dev)
+            _check(op, seg.hot_rows, "hot_rows", torch.float32, dev)
+            if seg.hot_rows.shape != (seg.hot_ids.shape[0], d):
+                raise ValueError(f"{op}: hot_rows "
+                                 f"{tuple(seg.hot_rows.shape)}")
+
+    def _check_call(self, t, dtype, name):
+        """`check_tensor` for this call's tensors, the common case first:
+        a stage calls this a dozen times, so its cost is host time."""
+        if (t.dtype is not dtype or t.get_device() != self._index
+                or not t.is_contiguous()):
+            _check("embedding_pool", t, name, dtype, self.device)
+
+    def launch(self, ids, outs, valid=None, weights=None):
+        """The kernel on this call's tensors -> counters or None."""
+        op = "embedding_pool"
+        n = len(self.segments)
+        if len(ids) != n or len(outs) != n or (
+                weights is not None and len(weights) != n):
+            raise ValueError(f"{op}: {n} segments, {len(ids)} ids, "
+                             f"{len(outs)} outputs")
+        vptr = None
+        if valid is not None:
+            self._check_call(valid, torch.bool, "valid")
+            vptr = valid.data_ptr()
+        call = []
+        checked = None
+        for s in range(n):
+            x, out = ids[s], outs[s]
+            self._check_call(x, torch.int32, "ids")
+            if out is not checked:  # a stage's segments share their outputs
+                self._check_call(out, torch.float32, "out")
+                checked = out
+            B, L = x.shape
+            if self._rows[s]:  # one slot a row, N rows a batch row
+                ok = out.dim() == 3 and out.shape[1] == L
+                rows, group, L = B * L, max(L, 1), 1
+            else:
+                ok = out.dim() == 2
+                rows, group = B, 1
+            if not ok or out.shape[0] != B or out.shape[-1] < self._ends[s]:
+                raise ValueError(f"{op}: out {tuple(out.shape)} for ids "
+                                 f"{tuple(x.shape)} (segment {s})")
+            if (valid is not None and self._masked[s]
+                    and valid.shape != (B,)):
+                raise ValueError(f"{op}: valid {tuple(valid.shape)}")
+            wptr = 0
+            if weights is not None and weights[s] is not None:
+                self._check_call(weights[s], torch.float32, "weights")
+                if weights[s].shape != x.shape:
+                    raise ValueError(f"{op}: weights "
+                                     f"{tuple(weights[s].shape)}")
+                wptr = weights[s].data_ptr()
+            call += [x.data_ptr(), wptr, out.data_ptr(), L, rows, group,
+                     out.shape[-1]]
+        counts = (torch.empty(2, dtype=torch.int32, device=self.device)
+                  if self.counted else None)
+        build.EMBEDDING_POOL.launch(
+            self.static, self._call_type(*call), n, vptr,
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream(self.device).cuda_stream)
+        return counts
+
+
+def grouped_pool(plan: PoolPlan, ids, outs, valid=None, weights=None):
+    """Every segment of a stage in one launch: segment s pools `ids[s]`
+    ((B, L) int32, -1 padded; (B, N) for a "rows" segment) into columns
+    [column, column + d) of each row of `outs[s]` ((B, W) f32, or
+    (B, N, W)), in place. `valid` ((B,) bool) masks the batch's padding
+    rows in the masked segments; `weights` is None or one (B, L) f32
+    tensor (or None) per segment. Returns the (2,) int32 [hits, lookups]
+    of the counted segments, or None if none is counted."""
+    if use_kernel("embedding_pool", ids[0]):
+        return plan.launch(ids, outs, valid, weights)
+    return ref.grouped_pool_ref(plan.segments, ids, outs, valid, weights)
 
 
 def embedding_pool(table_values, table_scales, ids, weights=None):
-    """Fused int8 dequant-gather-pool: (n,d) int8 table, (B,L) ids -> (B,d)."""
-    if use_kernel("embedding_pool", ids):
-        return _embedding_pool_cuda(table_values, table_scales, ids, weights)
-    return ref.embedding_pool_ref(table_values, table_scales, ids, weights)
+    """Fused int8 dequant-gather-pool: (n,d) int8 table, (B,L) ids -> (B,d)
+    (one "sum" segment of `grouped_pool`)."""
+    if not use_kernel("embedding_pool", ids):
+        return ref.embedding_pool_ref(table_values, table_scales, ids,
+                                      weights)
+    out = torch.empty((ids.shape[0], table_values.shape[1]),
+                      dtype=torch.float32, device=ids.device)
+    PoolPlan([PoolSegment(table_values, table_scales)]).launch(
+        [ids], [out], weights=None if weights is None else [weights])
+    return out
 
 
 def hamming_distances(queries, db):

@@ -8,6 +8,8 @@ uint32 shift on the CPU, so the popcount is a bit trick on int64.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.streaming_nns import (
@@ -29,19 +31,103 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+class PoolSegment(NamedTuple):
+    """One table of a grouped embedding pool (`grouped_pool_ref`, and the
+    kernel's segment behind `kernels/ops.py:grouped_pool`).
+
+    mode: "sum" or "mean" pools each (B, L) bag of ids to one row; "rows"
+    gives every id of a (B, N) array its own row, (B, N, d). hot_ids /
+    hot_rows: the table's hot set (sorted ids, pinned f32 rows, as a
+    `HotRowCache` holds them), or None. counted: the segment's hits and
+    lookups go to the stage's counters. masked: the batch's `valid` mask
+    applies (a padding row counts no lookup and reads zeros). column: the
+    first of the segment's d columns in each output row.
+    """
+
+    values: torch.Tensor  # (n, d) int8
+    scales: torch.Tensor  # (n, 1) f32
+    mode: str = "sum"
+    column: int = 0
+    hot_ids: torch.Tensor | None = None  # (K,) int32, ascending
+    hot_rows: torch.Tensor | None = None  # (K, d) f32
+    counted: bool = False
+    masked: bool = True
+
+
+POOL_MODES = ("sum", "mean", "rows")
+
+
+def pool_slots(seg: PoolSegment, ids: torch.Tensor,
+               weights: torch.Tensor | None = None):
+    """One segment's (R, L) slots -> ((R, d) f32, hits, lookups).
+
+    The kernel's arithmetic: a slot's row is the pinned f32 row on a hit
+    (the hot cache's `_probe`: lower-bound search clamped to the capacity,
+    hit iff the id is there and >= 0), else `value * scale` of the clamped
+    id; each term is `row * w`, summed slot by slot from 0 with padding
+    slots (id < 0) adding nothing; `mean` divides by max(count, 1).
+    """
+    n, d = seg.values.shape
+    valid = ids >= 0
+    safe = ids.clamp(0, n - 1).long()
+    rows = seg.values[safe].to(torch.float32) * seg.scales[safe]
+    hits = torch.zeros((), dtype=torch.int32, device=ids.device)
+    if seg.hot_ids is not None and seg.hot_ids.shape[0] > 0:
+        pos = torch.searchsorted(seg.hot_ids, ids).clamp(
+            0, seg.hot_ids.shape[0] - 1)
+        hit = (seg.hot_ids[pos] == ids) & valid
+        rows = torch.where(hit[..., None], seg.hot_rows[pos], rows)
+        hits = hit.sum(dtype=torch.int32)
+    acc = torch.zeros((ids.shape[0], d), dtype=torch.float32,
+                      device=ids.device)
+    for l in range(ids.shape[1]):
+        term = rows[:, l]
+        if weights is not None:
+            term = term * weights[:, l:l + 1]
+        acc = acc + torch.where(valid[:, l:l + 1], term, 0.0)
+    if seg.mode == "mean":
+        count = valid.sum(-1, keepdim=True, dtype=torch.int32)
+        acc = acc / count.clamp(min=1).to(torch.float32)
+    return acc, hits, valid.sum(dtype=torch.int32)
+
+
+def grouped_pool_ref(segments, ids, outs, valid=None, weights=None):
+    """Plain grouped embedding pool: segment s pools `ids[s]` (with
+    `weights[s]`, if given) into columns [column, column + d) of each row
+    of `outs[s]`, in place. Returns the (2,) int32 [hits, lookups] summed
+    over the counted segments, or None if none is counted."""
+    counts = None
+    if any(seg.counted for seg in segments):
+        counts = torch.zeros(2, dtype=torch.int32, device=ids[0].device)
+    for s, seg in enumerate(segments):
+        x = ids[s]
+        if valid is not None and seg.masked:
+            x = torch.where(valid[:, None], x, -1)
+        w = None if weights is None else weights[s]
+        if seg.mode == "rows":
+            x = x.reshape(-1, 1)
+            w = None if w is None else w.reshape(-1, 1)
+        pooled, hits, lookups = pool_slots(seg, x, w)
+        out = outs[s]
+        d = seg.values.shape[1]
+        out.view(-1, out.shape[-1])[:, seg.column:seg.column + d] = pooled
+        if seg.counted:
+            counts += torch.stack([hits, lookups])
+    return counts
+
+
 def embedding_pool_ref(
     table_values: torch.Tensor,  # (n, d) int8
     table_scales: torch.Tensor,  # (n, 1) f32
     ids: torch.Tensor,  # (B, L) int32, -1 = padding
     weights: torch.Tensor | None = None,  # (B, L) f32
 ) -> torch.Tensor:
-    """Fused int8 dequant-gather-pool -> (B, d) f32."""
-    valid = (ids >= 0).to(torch.float32)
-    safe = ids.clamp(0, table_values.shape[0] - 1).long()  # as jnp clamps
-    rows = table_values[safe].to(torch.float32)  # (B, L, d)
-    scales = table_scales[safe]  # (B, L, 1)
-    w = valid if weights is None else weights.to(torch.float32) * valid
-    return torch.einsum("bld,bl->bd", rows * scales, w)
+    """Fused int8 dequant-gather-pool -> (B, d) f32: one "sum" segment."""
+    out = torch.empty((ids.shape[0], table_values.shape[1]),
+                      dtype=torch.float32, device=ids.device)
+    grouped_pool_ref([PoolSegment(table_values, table_scales)], [ids], [out],
+                     weights=None if weights is None else [weights])
+    return out
 
 
 def hamming_distance_ref(queries: torch.Tensor,

@@ -3,18 +3,24 @@
 Per batch, three stages (`serve_step`):
 
   1. `_lookup_stage`: the five user-feature bags and the mean-pooled
-     history bag through the hot caches, then the filtering MLP -> u;
+     history bag through the hot caches, in one launch of the grouped
+     embedding-pool kernel that writes them straight into the filtering
+     MLP's input, then the MLP -> u;
   2. `_scan_stage`: the LSH signature of u and the fixed-radius Hamming
      NNS over the item signatures (dense plan below `STREAM_MIN_ITEMS`
      rows, else the pruned streaming plan) -> candidates;
-  3. `_rank_stage`: candidate rows through the hot cache, the genre bag
-     through the int8 pool kernel, the ranking MLP, sigmoid and the
-     threshold top-k -> final item ids.
+  3. `_rank_stage`: the candidate rows through the hot cache and the genre
+     bag, in one launch of the grouped pool kernel (the rows straight into
+     the ranking MLP's input), the ranking MLP, sigmoid and the threshold
+     top-k -> final item ids.
 
 The engine is a plain dataclass of tensors on one device. PyTorch runs
 eagerly, so the stage functions are called directly (the reference jits
-them). `ServeResult.cost` is None: the paper's cost model is not ported
-yet.
+them). The two stages' pool plans (`kernels/ops.py:PoolPlan`: tables, hot
+sets, modes and output columns) do not depend on the batch and are built
+with the engine. The frozen engine serves `delta=None` only; the
+live-catalog paths of `serving/catalog.py` stay for its port.
+`ServeResult.cost` is None: the paper's cost model is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +29,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.embedding import embedding_bag
 from repro_torch.core.lsh import lsh_signature
 from repro_torch.core.nns import (
     NNSResult,
@@ -36,16 +41,12 @@ from repro_torch.core.quantization import (
     quantize_rowwise,
 )
 from repro_torch.core.topk import TopKResult, threshold_topk
+from repro_torch.kernels import ops
 from repro_torch.models import recsys as rs
-from repro_torch.serving.catalog import (
-    delta_cached_embedding_bag,
-    delta_cached_rows,
-)
 from repro_torch.serving.hot_cache import (
     CacheStats,
     HotRowCache,
     build_hot_cache,
-    cached_embedding_bag,
 )
 from repro_torch.utils import resolve_device, to_device
 
@@ -85,6 +86,15 @@ class RecSysEngine:
     top_k: int = 10
     scan_block: int | None = None
     prune: bool | None = None
+    # the two stages' grouped-pool plans, made from the fields above
+    lookup_plan: ops.PoolPlan = dataclasses.field(init=False, repr=False,
+                                                  compare=False)
+    rank_plan: ops.PoolPlan = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "lookup_plan", _lookup_plan(self))
+        object.__setattr__(self, "rank_plan", _rank_plan(self))
 
     @property
     def device(self) -> torch.device:
@@ -166,39 +176,75 @@ class RecSysEngine:
 
 
 # ---------------------------------------------------------------------------
+# the grouped-pool plans of the two stages
+# ---------------------------------------------------------------------------
+def _segment(table: QuantizedTensor, cache: HotRowCache | None, **kw):
+    hot = cache is not None and cache.capacity > 0
+    return ops.PoolSegment(
+        values=table.values, scales=table.scales,
+        hot_ids=cache.hot_ids if hot else None,
+        hot_rows=cache.hot_rows if hot else None, **kw)
+
+
+def _lookup_plan(engine: RecSysEngine) -> ops.PoolPlan:
+    """The sorted user features' bags, then the mean-pooled history, side
+    by side in the filtering MLP's input (`_features`' concatenation)."""
+    segs, col = [], 0
+    for name in sorted(engine.cfg.user_features):
+        table = engine.tables_q[name]
+        segs.append(_segment(table, engine.uiet_hot.get(name), mode="sum",
+                             column=col, counted=True))
+        col += table.values.shape[1]
+    segs.append(_segment(engine.item_table_q, engine.item_hot, mode="mean",
+                         column=col, counted=True))
+    return ops.PoolPlan(segs)
+
+
+def _rank_plan(engine: RecSysEngine) -> ops.PoolPlan:
+    """The candidate rows after the context [u, genre, pooled] in the
+    ranking MLP's input, and the genre bag (no cache, no counters, and,
+    as in the reference, read for padding rows too)."""
+    ctx = (engine.params["filter_mlp"][-1]["b"].shape[0]
+           + engine.genre_table_q.values.shape[1]
+           + engine.item_table_q.values.shape[1])
+    return ops.PoolPlan([
+        _segment(engine.item_table_q, engine.item_hot, mode="rows",
+                 column=ctx, counted=True),
+        _segment(engine.genre_table_q, None, mode="sum", masked=False)])
+
+
+def _frozen_only(engine: RecSysEngine) -> None:
+    if engine.delta is not None:
+        raise NotImplementedError("live-catalog serving is not ported yet")
+
+
+# ---------------------------------------------------------------------------
 # the pipeline stages (batch tensors already on the engine's device)
 # ---------------------------------------------------------------------------
 def _features(engine: RecSysEngine, batch: dict):
-    """Cached lookups + filtering DNN -> (u, pooled_history, CacheStats)."""
-    valid = batch.get("valid")
+    """Cached lookups + filtering DNN -> (u, pooled_history, CacheStats).
 
-    def mask(ids):
-        if valid is None:
-            return ids
-        return torch.where(valid[:, None], ids, -1)
-
-    stats = CacheStats.zero(engine.device)
-    feats = []
-    for name in sorted(engine.cfg.user_features.keys()):
-        emb, st = cached_embedding_bag(
-            engine.uiet_hot.get(name), engine.tables_q[name],
-            mask(batch[name][:, None]))
-        feats.append(emb)
-        stats = stats + st
-    pooled, st = delta_cached_embedding_bag(
-        engine.delta, engine.item_hot, engine.item_table_q,
-        mask(batch["history"]), mode="mean")
-    stats = stats + st
-    feats.append(pooled)
-    x = torch.cat(feats, dim=-1)
+    One grouped-pool launch writes every bag into its columns of the MLP's
+    input; padding rows (`valid` False) count no lookups and read zeros.
+    """
+    _frozen_only(engine)
+    plan = engine.lookup_plan
+    hist = batch["history"]
+    names = sorted(engine.cfg.user_features)
+    x = torch.empty((hist.shape[0], plan.width), dtype=torch.float32,
+                    device=hist.device)
+    counts = ops.grouped_pool(plan, [batch[n][:, None] for n in names]
+                              + [hist], [x] * (len(names) + 1),
+                              valid=batch.get("valid"))
     u = rs._mlp_apply(engine.params["filter_mlp"], x)
-    return u, pooled, stats
+    col = plan.segments[-1].column
+    pooled = x[:, col:col + engine.item_table_q.values.shape[1]]
+    return u, pooled, CacheStats(hits=counts[0], lookups=counts[1])
 
 
 def _nns(engine: RecSysEngine, q_sigs: torch.Tensor) -> NNSResult:
     """Filtering scan over the item signatures (local plan)."""
-    if engine.delta is not None:
-        raise NotImplementedError("live-catalog serving is not ported yet")
+    _frozen_only(engine)
     return fixed_radius_nns(q_sigs, engine.item_sigs, engine.radius,
                             engine.n_candidates,
                             scan_block=engine.scan_block,
@@ -213,20 +259,33 @@ def filter_step(engine: RecSysEngine, batch: dict):
 
 def _rank(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
           u: torch.Tensor, pooled: torch.Tensor):
-    """CTR + threshold top-k given precomputed user features."""
+    """CTR + threshold top-k given precomputed user features.
+
+    One grouped-pool launch writes the candidate rows into the ranking
+    MLP's input (padding rows and -1 candidates read zeros and count no
+    lookups) and pools the genre bag; the context fills the rest.
+    """
+    _frozen_only(engine)
+    plan = engine.rank_plan
     valid = batch.get("valid")
-    if valid is not None:  # padding rows: no candidate lookups, no stats
-        cand = torch.where(valid[:, None], cand, -1)
-    items, st = delta_cached_rows(engine.delta, engine.item_hot,
-                                  engine.item_table_q, cand)
-    genre = embedding_bag(engine.genre_table_q, batch["genre"][:, None])
+    cand = cand.contiguous()
     B, N = cand.shape
+    x = torch.empty((B, N, plan.width), dtype=torch.float32,
+                    device=cand.device)
+    genre = torch.empty((B, engine.genre_table_q.values.shape[1]),
+                        dtype=torch.float32, device=cand.device)
+    counts = ops.grouped_pool(plan, [cand, batch["genre"][:, None]],
+                              [x, genre], valid=valid)
     ctx = torch.cat([u, genre, pooled], dim=-1)
-    x = torch.cat([ctx[:, None].expand(B, N, ctx.shape[-1]), items], dim=-1)
+    x[..., :ctx.shape[-1]] = ctx[:, None]
     logits = rs._mlp_apply(engine.params["rank_mlp"], x)[..., 0]
     ctr = torch.sigmoid(logits)
-    ctr = torch.where(cand >= 0, ctr, float("-inf"))
-    return threshold_topk(ctr, threshold=0.0, k=engine.top_k), st
+    keep = cand >= 0
+    if valid is not None:  # padding rows: no candidates
+        keep &= valid[:, None]
+    ctr = torch.where(keep, ctr, float("-inf"))
+    return (threshold_topk(ctr, threshold=0.0, k=engine.top_k),
+            CacheStats(hits=counts[0], lookups=counts[1]))
 
 
 def rank_step(engine: RecSysEngine, batch: dict, cand: torch.Tensor):

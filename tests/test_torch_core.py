@@ -30,6 +30,7 @@ from repro_torch.core import lsh as tlsh
 from repro_torch.core import nns as tnns
 from repro_torch.core import quantization as tquant
 from repro_torch.core import topk as ttopk
+from repro_torch.kernels import ref as tref
 from repro_torch.models import recsys as trs
 from repro_torch.serving import catalog as tcat
 from repro_torch.serving import hot_cache as thot
@@ -317,6 +318,166 @@ def test_probe_over_invalid_id_padded_cache():
     _eq(got, want)
     assert st.as_dict() == wst.as_dict() == {"hits": 4, "lookups": 6,
                                              "hit_rate": 4 / 6}
+
+
+# ---------------------------------------------------------------------------
+# the plain grouped pool (`kernels/ref.py:grouped_pool_ref`) against the
+# reference's cached bags, cached rows and uncached bags
+# ---------------------------------------------------------------------------
+def _pool_mag(segs, ids, outs_shape, valid, weights):
+    """Per output element, the sum of its terms' magnitudes: the plain
+    grouped pool over |values| and |weights|."""
+    abs_segs = [tref.PoolSegment(
+        values=seg.values.abs(), scales=seg.scales, mode=seg.mode,
+        column=seg.column,
+        hot_ids=None if seg.hot_ids is None else seg.hot_ids,
+        hot_rows=None if seg.hot_rows is None else seg.hot_rows.abs(),
+        masked=seg.masked) for seg in segs]
+    outs = [torch.zeros(shape) for shape in outs_shape]
+    tref.grouped_pool_ref(abs_segs, ids, outs, valid,
+                          None if weights is None else
+                          [None if w is None else w.abs() for w in weights])
+    return outs
+
+
+def _hot_pair(jq, tq, rng, kind):
+    """(reference cache, port cache) of one kind: none, empty, a hot set
+    pinned by frequency, or a pinned set padded with INVALID_ID slots."""
+    n = tq.values.shape[0]
+    if kind == "none":
+        return None, None
+    if kind == "sentinel":
+        jc = jhot.pin_rows(jq, rng.choice(n, 5, replace=False), 9)
+    else:
+        jc = jhot.build_hot_cache(jq, rng.integers(0, 50, n),
+                                  0 if kind == "empty" else 16)
+    return jc, thot.HotRowCache(hot_ids=_t(jc.hot_ids),
+                                hot_rows=_t(jc.hot_rows),
+                                capacity=jc.capacity)
+
+
+def _pool_ids(rng, n, B, L):
+    """-1 padding, ids past the table, a bag with every slot padded, and
+    (where the cache holds sentinels) the sentinel id itself."""
+    ids = rng.integers(-1, n + 3, size=(B, L)).astype(np.int32)
+    ids[1] = -1
+    ids[2, 0] = thot.INVALID_ID
+    return ids
+
+
+def _reference_segment(mode, jc, jq, ids, w):
+    """The reference's own function for one segment -> (out, stats)."""
+    if mode == "rows":
+        return _jit_cached_rows(jc, jq, ids)
+    if jc is None:
+        return jemb.embedding_bag(jq, ids, w, mode=mode), None
+    return jax.jit(functools.partial(jhot.cached_embedding_bag, mode=mode))(
+        jc, jq, ids, w)
+
+
+@pytest.mark.parametrize("mode,cache,weighted", [
+    ("sum", "none", False), ("sum", "hot", True), ("sum", "sentinel", False),
+    ("mean", "hot", False), ("mean", "empty", True), ("mean", "sentinel",
+                                                      False),
+    ("rows", "hot", False), ("rows", "sentinel", False), ("rows", "empty",
+                                                          False)])
+def test_grouped_pool_segment_matches_reference(mode, cache, weighted):
+    rng = np.random.default_rng(len(mode) * 7 + len(cache) + weighted)
+    n, d, B, L = 70, 32, 9, 20
+    jq, tq = _qt_pair(rng, n, d)
+    jc, tc = _hot_pair(jq, tq, rng, cache)
+    ids = _pool_ids(rng, n, B, L)
+    valid = np.arange(B) != 4  # a padding row of the batch
+    w = rng.normal(size=(B, L)).astype(np.float32) if weighted else None
+    seg = tref.PoolSegment(
+        values=tq.values, scales=tq.scales, mode=mode, column=3,
+        hot_ids=None if tc is None else tc.hot_ids,
+        hot_rows=None if tc is None else tc.hot_rows, counted=True)
+    shape = (B, L, d + 5) if mode == "rows" else (B, d + 5)
+    out = torch.full(shape, 7.0)
+    tw = None if w is None else [_t(w)]
+    counts = tref.grouped_pool_ref([seg], [_t(ids)], [out], _t(valid), tw)
+
+    masked = jnp.where(jnp.asarray(valid)[:, None], jnp.asarray(ids), -1)
+    want, wst = _reference_segment(mode, jc, jq, masked,
+                                   None if w is None else jnp.asarray(w))
+    want = np.asarray(want)
+    got = out[..., 3:3 + d].numpy()
+    assert (out[..., :3] == 7.0).all() and (out[..., 3 + d:] == 7.0).all()
+    if mode == "rows":  # one IEEE product an element: equal
+        _eq(got, want)
+    else:
+        mag = _pool_mag([seg], [_t(ids)], [shape], _t(valid), tw)[0]
+        np.testing.assert_array_less(
+            np.abs(got - want), FLOAT_RTOL * mag[..., 3:3 + d].numpy()
+            + 1e-12)
+        _eq(got[1], np.zeros(d))  # every slot padded: zeros, also in mean
+    _eq(got[4], np.zeros_like(got[4]))  # the batch's padding row
+    if wst is None:  # the uncached bag has no counters; the hits are 0
+        wst = jhot.CacheStats(hits=jnp.int32(0), lookups=jnp.int32(
+            int((np.asarray(masked) >= 0).sum())))
+    assert {"hits": int(counts[0]), "lookups": int(counts[1])} == \
+        {"hits": int(wst.hits), "lookups": int(wst.lookups)}
+    if cache == "hot":
+        assert int(counts[0]) > 0  # the case really hits
+
+
+@pytest.mark.parametrize("stage", ["lookup", "rank"])
+def test_grouped_pool_stage_matches_reference(stage):
+    """A stage's whole segment list in one call: the lookup stage's five
+    one-slot feature bags and the mean history bag side by side in one
+    buffer, or the rank stage's candidate rows after a context gap plus
+    the genre bag (unmasked, uncounted) in its own buffer."""
+    rng = np.random.default_rng(len(stage))
+    B, d = 11, 32
+    valid = np.arange(B) < B - 2
+    jvalid = jnp.asarray(valid)[:, None]
+    tabs = [_qt_pair(rng, n, d) for n in (40, 9, 30, 60, 25, 90)]
+    if stage == "lookup":
+        caches = [_hot_pair(jq, tq, rng, kind) for (jq, tq), kind in zip(
+            tabs, ("hot", "empty", "sentinel", "hot", "hot", "hot"))]
+        ids = [rng.integers(-1, tq.values.shape[0] + 2, size=(B, 1))
+               .astype(np.int32) for _, tq in tabs[:5]]
+        ids.append(_pool_ids(rng, 90, B, 20))
+        modes = ["sum"] * 5 + ["mean"]
+        segs = [tref.PoolSegment(
+            values=tq.values, scales=tq.scales, mode=m, column=i * d,
+            hot_ids=None if tc is None else tc.hot_ids,
+            hot_rows=None if tc is None else tc.hot_rows, counted=True)
+            for i, ((_, tq), (_, tc), m) in enumerate(zip(tabs, caches,
+                                                          modes))]
+        out = torch.zeros((B, 6 * d))
+        outs, views = [out] * 6, [out[:, i * d:(i + 1) * d]
+                                  for i in range(6)]
+    else:
+        (jq_i, tq_i), (jq_g, tq_g) = tabs[5], tabs[1]
+        jc, tc = _hot_pair(jq_i, tq_i, rng, "hot")
+        caches = [(jc, tc), (None, None)]
+        ids = [_pool_ids(rng, 90, B, 50),
+               rng.integers(0, 9, size=(B, 1)).astype(np.int32)]
+        segs = [tref.PoolSegment(values=tq_i.values, scales=tq_i.scales,
+                                 mode="rows", column=96, hot_ids=tc.hot_ids,
+                                 hot_rows=tc.hot_rows, counted=True),
+                tref.PoolSegment(values=tq_g.values, scales=tq_g.scales,
+                                 masked=False)]
+        modes = ["rows", "sum"]
+        outs = [torch.zeros((B, 50, 96 + d)), torch.zeros((B, d))]
+        views = [outs[0][..., 96:], outs[1]]
+        tabs = [tabs[5], tabs[1]]
+    counts = tref.grouped_pool_ref(segs, [_t(x) for x in ids], outs,
+                                   _t(valid))
+    hits = lookups = 0
+    for seg, (jq, _), (jc, _), x, m, view in zip(segs, tabs, caches, ids,
+                                                 modes, views):
+        jx = jnp.where(jvalid, jnp.asarray(x), -1) if seg.masked else \
+            jnp.asarray(x)
+        want, wst = _reference_segment(m, jc, jq, jx, None)
+        np.testing.assert_allclose(view.numpy(), np.asarray(want),
+                                   rtol=FLOAT_RTOL, atol=1e-8)
+        if seg.counted:
+            hits, lookups = hits + int(wst.hits), lookups + int(wst.lookups)
+    assert (int(counts[0]), int(counts[1])) == (hits, lookups)
+    assert hits > 0
 
 
 def test_delta_rows_match_reference():

@@ -74,6 +74,150 @@ def test_hamming_equals_plain(cuda, q, n, words):
     assert torch.equal(got, ref.hamming_distance_ref(queries, db))
 
 
+def _plain_hamming(queries, db, chunk=1 << 15):
+    return torch.cat([ref.hamming_distance_ref(queries, db[i:i + chunk])
+                      for i in range(0, db.shape[0], chunk)], dim=1)
+
+
+@pytest.mark.parametrize("q", [1, 17, 256])
+@pytest.mark.parametrize("n", [1, 7, 3000, 262143])
+@pytest.mark.parametrize("words", [1, 3, 5, 8])
+def test_hamming_tensor_core_shapes_equal_plain(cuda, q, n, words):
+    """The tensor-core Hamming kernel around its 128 x 64 tile: one query
+    to phase A's 256, one row to the largest dense catalog (n odd, so the
+    output rows start off 16-byte boundaries)."""
+    rng = np.random.default_rng(q + n + words)
+    queries, db = _sigs(rng, q, words, cuda), _sigs(rng, n, words, cuda)
+    before = build.HAMMING.launches
+    got = ops.hamming_distances(queries, db)
+    torch.cuda.synchronize()
+    assert build.HAMMING.launches == before + 1
+    assert torch.equal(got, _plain_hamming(queries, db))
+
+
+def _pool_table(rng, n, d, device):
+    values = torch.from_numpy(
+        rng.integers(-127, 128, size=(n, d)).astype(np.int8)).to(device)
+    scales = torch.from_numpy(
+        (rng.random((n, 1)) * 0.01 + 1e-4).astype(np.float32)).to(device)
+    return values, scales
+
+
+def _pinned(values, scales, ids, capacity):
+    """A hot set pinning `ids` (ascending), INVALID_ID-padded to
+    `capacity` with zero rows, as the reference's `pin_rows` makes it."""
+    from repro_torch.serving.hot_cache import INVALID_ID
+
+    ids = torch.sort(ids.to(torch.int32)).values
+    hot = torch.full((capacity,), INVALID_ID, dtype=torch.int32,
+                     device=values.device)
+    rows = torch.zeros((capacity, values.shape[1]), device=values.device)
+    hot[:ids.shape[0]] = ids
+    rows[:ids.shape[0]] = values[ids.long()].float() * scales[ids.long()]
+    return hot, rows
+
+
+def _pool_both(plan, ids, outs, valid, weights=None):
+    """The grouped kernel (one launch) and the plain version on the same
+    inputs -> (kernel outs, counts), (plain outs, counts)."""
+    got = [o.clone() for o in outs]
+    before = build.EMBEDDING_POOL.launches
+    counts = ops.grouped_pool(plan, ids, got, valid, weights)
+    torch.cuda.synchronize()
+    assert build.EMBEDDING_POOL.launches == before + 1
+    want = [o.clone() for o in outs]
+    with _plain("embedding_pool"):
+        want_counts = ops.grouped_pool(plan, ids, want, valid, weights)
+    assert build.EMBEDDING_POOL.launches == before + 1
+    return (got, counts), (want, want_counts)
+
+
+@pytest.mark.parametrize("d,L,weighted,hot", [
+    (32, 20, True, "sentinel"), (40, 1, False, "none"),
+    (160, 45, True, "pinned"), (32, 0, False, "pinned"),
+    (8, 33, False, "sentinel"), (32, 20, False, "large")])
+def test_grouped_pool_segments_equal_plain(cuda, d, L, weighted, hot):
+    """Sum, mean and rows segments of one table in one launch, bit for bit
+    and with equal counters: weights, d off and past 128 columns (two
+    passes), L past one 32-slot chunk and L = 0, ids past the table,
+    padding ids and rows, hot sets with INVALID_ID sentinels (the
+    sentinel id itself hits a zero row), and a hot set too large for
+    shared memory (searched in device memory)."""
+    from repro_torch.serving.hot_cache import INVALID_ID
+
+    rng = np.random.default_rng(d + L)
+    n, B = (3000, 37) if hot == "large" else (300, 37)
+    values, scales = _pool_table(rng, n, d, cuda)
+    hot_ids = hot_rows = None
+    if hot != "none":
+        k = 2100 if hot == "large" else 20
+        pick = torch.from_numpy(rng.choice(n, k, replace=False)).to(cuda)
+        hot_ids, hot_rows = _pinned(values, scales, pick,
+                                    k + 12 if hot == "sentinel" else k)
+    ids = rng.integers(-1, n + 4, size=(B, L)).astype(np.int32)
+    if L:
+        ids[0, 0] = INVALID_ID
+        ids[3] = -1  # a bag with every slot padded
+    ids = torch.from_numpy(ids).to(cuda)
+    w = (torch.from_numpy(rng.normal(size=(B, L)).astype(np.float32))
+         .to(cuda) if weighted else None)
+    valid = torch.from_numpy(np.arange(B) % 5 != 2).to(cuda)
+    segs = [ops.PoolSegment(values, scales, mode=m, column=c,
+                            hot_ids=hot_ids, hot_rows=hot_rows, counted=cnt,
+                            masked=msk)
+            for m, c, cnt, msk in (("sum", 0, True, True),
+                                   ("mean", d + 3, True, False),
+                                   ("rows", 5, False, True))]
+    plan = ops.PoolPlan(segs)
+    outs = [torch.full((B, 2 * d + 3), 9.0, device=cuda)] * 2 + [
+        torch.full((B, L, d + 5), 9.0, device=cuda)]
+    (got, counts), (want, want_counts) = _pool_both(
+        plan, [ids] * 3, outs, valid, [w, w, None])
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt)
+    assert torch.equal(counts, want_counts)
+    assert int(counts[1]) == 2 * int((ids >= 0).sum()) - int(
+        (ids[~valid] >= 0).sum())
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_grouped_pool_stages_equal_plain(cuda, with_valid):
+    """The engine's two stages, each one launch: the lookup stage's six
+    segments and the rank stage's candidate rows + genre bag, bit for bit
+    with the plain version, CacheStats included."""
+    cfg = default_youtubednn_config()._replace(n_items=2000)
+    rng = np.random.default_rng(1)
+    eng = trs.RecSysEngine.build(
+        _numpy_params(cfg, rng), cfg,
+        lsh_proj=torch.from_numpy(rng.standard_normal((32, 256))
+                                  .astype(np.float32)),
+        hot_rows=64, item_freqs=rng.integers(0, 100, cfg.n_items),
+        device=cuda)
+    B = 96
+    raw = {k: rng.integers(0, c, B).astype(np.int32)
+           for k, c in cfg.user_features.items()}
+    raw.update(history=rng.integers(-1, cfg.n_items + 2, (B, 20))
+               .astype(np.int32), genre=rng.integers(0, 18, B)
+               .astype(np.int32))
+    if with_valid:
+        raw["valid"] = np.arange(B) < B - 7
+    batch = eng.batch_to_device(raw)
+    valid = batch.get("valid")
+    names = sorted(cfg.user_features)
+    x = torch.zeros((B, eng.lookup_plan.width), device=cuda)
+    ids = [batch[k][:, None] for k in names] + [batch["history"]]
+    (got, c), (want, wc) = _pool_both(eng.lookup_plan, ids, [x] * 6, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(c, wc)
+    cand = torch.from_numpy(rng.integers(-1, cfg.n_items, (B, 50))
+                            .astype(np.int32)).to(cuda)
+    outs = [torch.zeros((B, 50, eng.rank_plan.width), device=cuda),
+            torch.zeros((B, 32), device=cuda)]
+    (got, c), (want, wc) = _pool_both(
+        eng.rank_plan, [cand, batch["genre"][:, None]], outs, valid)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(c, wc) and int(c[0]) > 0
+
+
 @pytest.mark.parametrize("n,d,B,L,weighted", [
     (18, 32, 256, 1, False), (3000, 32, 256, 20, True),
     (300, 64, 37, 20, False), (50, 40, 5, 3, True)])
@@ -191,6 +335,19 @@ def test_kernels_refuse_bad_input(cuda):
         ops.streaming_nns(q, q, radius=3, max_candidates=129)
     with pytest.raises(ValueError):
         ops.streaming_nns(q, q.cpu(), radius=3, max_candidates=4)
+    plan = ops.PoolPlan([ops.PoolSegment(
+        torch.zeros((5, 32), dtype=torch.int8, device=cuda),
+        torch.ones((5, 1), device=cuda))])
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    out = torch.zeros((4, 32), device=cuda)
+    for bad_ids, bad_out in ((ids.long(), out), (ids, out.cpu()),
+                             (ids, out[:3]), (ids, out[:, :31]),
+                             (ids, out.t())):
+        with pytest.raises(ValueError):
+            ops.grouped_pool(plan, [bad_ids], [bad_out])
+    with pytest.raises(ValueError):  # one batch row too many in valid
+        ops.grouped_pool(plan, [ids], [out],
+                         valid=torch.ones(5, dtype=torch.bool, device=cuda))
 
 
 def _numpy_params(cfg, rng):
@@ -235,7 +392,7 @@ def test_engine_on_the_card_serves_like_the_cpu_engine(cuda, scan_block):
     build.reset_launches()
     got = gpu.serve(batch)
     counts = build.launch_counts()
-    assert counts["embedding_pool"] == 1
+    assert counts["embedding_pool"] == 2  # one grouped launch a stage
     assert counts["hamming_distances" if scan_block is None
                   else "streaming_nns"] == 1
     with _plain("hamming_distances", "embedding_pool", "streaming_nns"):

@@ -299,6 +299,66 @@ def test_pm1_threshold_is_the_radius_test(words):
         np.testing.assert_array_equal(dot >= 32 * words - 2 * r, dist <= r)
 
 
+def _hamming_tiles(queries: np.ndarray, db: np.ndarray):
+    """The dense Hamming kernel (`csrc/hamming.cu`) emulated on the CPU:
+    64-query x 64-row tiles of the +-1 product (rows and queries past the
+    ends expanded from 0 words), d = (32 w - acc) / 2, each warp's 16 x 64
+    distances staged, then stored as one 4-word chunk a lane into an output
+    whose row stride is n rounded up to 4 words. Returns the output buffer
+    (q, ld) and how often each of its words was written."""
+    q, words = queries.shape
+    n = db.shape[0]
+    ld = -(-n // 4) * 4
+    out = np.full((q, ld), -7, np.int32)
+    written = np.zeros(out.shape, np.int32)
+    qt, nt = -(-q // 64), -(-n // 64)
+    a = _pm1_expand(np.concatenate(
+        [queries, np.zeros((qt * 64 - q, words), np.uint32)]))
+    b = _pm1_expand(np.concatenate(
+        [db, np.zeros((nt * 64 - n, words), np.uint32)]))
+    flat = out.reshape(-1)
+    for t in range(qt):
+        for tile in range(nt):
+            acc = (a[64 * t:64 * (t + 1)].astype(np.int32)
+                   @ b[64 * tile:64 * (tile + 1)].astype(np.int32).T)
+            assert ((32 * words - acc) % 2 == 0).all()
+            dist = (32 * words - acc) >> 1
+            for rr in range(64):  # 4 warps x 16 staged rows
+                qi = 64 * t + rr
+                if qi >= q:
+                    break
+                for lane in range(16):  # a half-warp, 16 bytes a lane
+                    c = 64 * tile + 4 * lane
+                    if c >= ld:
+                        continue
+                    dst = qi * ld + c
+                    assert dst % 4 == 0  # a 16-byte aligned chunk
+                    flat[dst:dst + 4] = dist[rr, 4 * lane:4 * lane + 4]
+                    written.reshape(-1)[dst:dst + 4] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("words", range(1, 9))
+def test_hamming_tensor_core_tiles_match_pallas(words):
+    """Ragged q and n around the kernel's 64 x 64 tile, at every word
+    count, with n off a multiple of 4 (padded rows) and on one: every word
+    of the (q, n) result is written once, the padding at most once and
+    nothing past it, and the result equals the Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(200 + words)
+    q, n = (70, 130) if words % 2 else (65, 67)
+    queries = _bit_pattern_sigs(rng, q, words)
+    db = _bit_pattern_sigs(rng, n, words)
+    for rows in (n, 64):
+        want = np.asarray(hamming_distances_pallas(
+            jnp.asarray(queries), jnp.asarray(db[:rows]),
+            block_n=jops._hamming_block_n(rows), interpret=True))
+        got, written = _hamming_tiles(queries, db[:rows])
+        np.testing.assert_array_equal(got[:, :rows], want)
+        assert (written[:, :rows] == 1).all()
+        assert (written[:, rows:] <= 1).all()
+
+
 # ---------------------------------------------------------------------------
 # routing, build and import hygiene (no GPU needed)
 # ---------------------------------------------------------------------------
@@ -309,6 +369,28 @@ def test_override_values_are_checked(monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_HAMMING_DISTANCES", "pallas")
     with pytest.raises(ValueError):
         ops.hamming_distances(x, x)
+
+
+def test_pool_plan_checks_its_segments():
+    """A grouped-pool plan checks its tables once, when it is made: dtypes,
+    scale and hot-row shapes, the mode, the column; 1 to 8 segments."""
+    v = torch.zeros((5, 32), dtype=torch.int8)
+    sc = torch.ones((5, 1))
+    plan = ops.PoolPlan([ops.PoolSegment(v, sc, column=4),
+                         ops.PoolSegment(v, sc, mode="rows", column=40,
+                                         counted=True)])
+    assert plan.width == 72 and plan.counted
+    hot = torch.zeros(3, dtype=torch.int32)
+    for bad in (ops.PoolSegment(v.float(), sc), ops.PoolSegment(v, sc[:4]),
+                ops.PoolSegment(v, sc, mode="max"),
+                ops.PoolSegment(v, sc, column=-1),
+                ops.PoolSegment(v, sc, hot_ids=hot,
+                                hot_rows=torch.zeros(3, 16))):
+        with pytest.raises(ValueError):
+            ops.PoolPlan([bad])
+    for n in (0, 9):
+        with pytest.raises(ValueError):
+            ops.PoolPlan([ops.PoolSegment(v, sc)] * n)
 
 
 def test_cpu_tensors_take_the_plain_versions():
