@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (`src/repro_torch`), one GPU.
 
     python3 chip_smoke.py [--seed 0] [--record PATH]
+    python3 chip_smoke.py --profile [--src DIR] [--seed 0]
 
 1. Builds the five CUDA kernels from `src/repro_torch/kernels/csrc`.
 2. Phase A: the paper's YoutubeDNN/MovieLens engine (3000 items, seeded
@@ -17,8 +18,9 @@
    finite scores, equality with the plain PyTorch versions on the card
    (`REPRO_TORCH_<OP>=torch`; cache counters included), and the NNS
    candidates of a CPU engine built from the same weights, given the
-   card's query signatures. Then the host-clock time of each stage, and
-   `torch.profiler` over one serve step (kernels, device time, idle share).
+   card's query signatures. Then the host-clock time of each stage (the
+   median over 5 steps), and `torch.profiler` over one serve step
+   (kernels, device time, idle share).
 4. Phase D: Qwen3-8B at full width and all 36 layers in bfloat16 (random
    weights from a seeded CUDA generator), batch 4, 2048 prompt tokens, 16
    generated, int8 KV cache. D.1 `LMServingEngine.generate`, the entry
@@ -64,6 +66,12 @@ JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
 also writes the full record as JSON. Any failure exits nonzero. Without a
 GPU, or without the repository beside it, it exits 1 and prints no
 result.
+
+`--profile` runs only the timing of phases A and B's serve steps (stages,
+serve step, profile) and of the Hamming op, with the port imported from
+`--src` (default: this checkout's `src`): run it on a parent tree unpacked
+with `git archive` and on this one, in one call, to compare them on one
+card. It checks nothing and prints no kernel table.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ import argparse
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -101,6 +110,10 @@ N_BATCHES_A = 4
 N_BATCHES_B = 3
 N_ITEMS_B = 1 << 20
 HOT_ROWS = 128
+# serve steps behind each stage-time median: a checked run, and `--profile`
+# (whose medians compare two trees)
+STEPS = 5
+PROFILE_STEPS = 20
 POOL_RTOL = 1e-5
 # ~50 ms of GPU clock: longer than the host takes to queue a timing loop
 SPIN_CYCLES = 100_000_000
@@ -196,6 +209,33 @@ def make_batch(rng, cfg, n: int) -> dict:
     batch["history"] = hist
     batch["genre"] = rng.integers(0, 18, n).astype(np.int32)
     return batch
+
+
+def serve_inputs(seed: int, device):
+    """The seeded inputs of phases A and B, drawn in one fixed order: the
+    torch generator (it also draws phase C's streaming mask later), the
+    LSH projections, and per phase its config, weights, item frequencies
+    (for the hot set) and batches."""
+    from repro_torch.core.lsh import make_lsh_projections
+    from repro_torch.models.recsys import default_youtubednn_config
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    cfg = default_youtubednn_config()
+    proj = make_lsh_projections(cfg.embed_dim, 256, generator=gen,
+                                device=device)
+    phases = {}
+    for name, cfg_p, p_seed, n_batches, n_freq in (
+            ("A", cfg, seed, N_BATCHES_A, 1 << 16),
+            ("B", cfg._replace(n_items=N_ITEMS_B), seed + 1, N_BATCHES_B,
+             1 << 18)):
+        params = numpy_params(cfg_p, p_seed)
+        freqs = np.bincount(popular_items(rng, cfg_p.n_items, n_freq),
+                            minlength=cfg_p.n_items)
+        batches = [make_batch(rng, cfg_p, BATCH) for _ in range(n_batches)]
+        phases[name] = {"cfg": cfg_p, "params": params, "freqs": freqs,
+                        "batches": batches}
+    return gen, proj, phases
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +354,25 @@ def stage_ms(engine, batch, rs_mod) -> dict:
             engine, b, nns.indices, u, pooled,
             CacheStats.zero(engine.device)))
     return out
+
+
+def step_times(engine, batch, rs_mod, ops, steps: int) -> dict:
+    """Where one serve step of `batch` spends its time: each stage's
+    host-clock ms (`stage_ms`), the median over `steps` steps; the mean
+    wall ms of `steps` serve steps; and `serve_profile` of one step."""
+    for _ in range(3):  # warm-up: libraries, handles, allocator
+        engine.serve(batch)
+    torch.cuda.synchronize()
+    stages = [stage_ms(engine, batch, rs_mod) for _ in range(steps)]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.serve(batch)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) / steps * 1e3
+    return {"stage_ms": {k: statistics.median(st[k] for st in stages)
+                         for k in stages[0]},
+            "serve_ms": serve_ms,
+            "profile": serve_profile(engine, batch, ops)}
 
 
 def cpu_reference_check(params, cfg, proj, gpu_engine, batch, rs_mod):
@@ -658,18 +717,29 @@ def hamming_entry(qa, db_a, db_max, ops, ref, launches: int) -> dict:
 
 
 def pool_stage_bytes_ops(plan, ids, valid) -> tuple[int, int]:
-    """What a grouped pool must move and compute for these inputs: per
-    live slot an int8 row and its f32 scale, and (v * s) * w + acc per
-    column; every id read once, every output row written once."""
-    n_bytes = n_ops = 0
+    """The least a grouped pool must move and compute for these inputs:
+    each distinct live row of a table (its clamped id) read once, d int8
+    values and an f32 scale, however many slots name it; every id, the
+    valid mask and the counted segments' hot ids read once; every output
+    row and the counters written once; and (v * s) * w + acc per live slot
+    and column."""
+    n_bytes = (0 if valid is None else valid.numel()) + 8 * plan.counted
+    n_ops = 0
+    live_rows: dict = {}  # table -> (d, its live row ids)
     for seg, x in zip(plan.segments, ids):
         if valid is not None and seg.masked:
             x = torch.where(valid[:, None], x, -1)
-        d = seg.values.shape[1]
-        live = int((x >= 0).sum())
+        n, d = seg.values.shape
+        live = x[x >= 0].clamp(max=n - 1)
+        prev = live_rows.get(seg.values.data_ptr(), (d, live[:0]))[1]
+        live_rows[seg.values.data_ptr()] = (d, torch.cat([prev, live]))
         rows = x.numel() if seg.mode == "rows" else x.shape[0]
-        n_bytes += live * (d + 4) + 4 * x.numel() + 4 * rows * d
-        n_ops += 3 * live * d
+        hot = (seg.hot_ids.numel()
+               if seg.counted and seg.hot_ids is not None else 0)
+        n_bytes += 4 * x.numel() + 4 * rows * d + 4 * hot
+        n_ops += 3 * live.numel() * d
+    for d, live in live_rows.values():
+        n_bytes += int(torch.unique(live).numel()) * (d + 4)
     return n_bytes, n_ops
 
 
@@ -810,21 +880,75 @@ def int8_entry(operands: dict, ops, ref, launches: int):
         "shape": f"m={m} k={k} n={n}"}
 
 
+def profile_run(args) -> int:
+    """`--profile`: phases A and B's engines and batches (`serve_inputs`),
+    built by the port under `--src`, so that two source trees, such as a
+    change and its parent unpacked with `git archive`, compare in one call
+    on one card. No check, no kernel table: per phase one JSON line of
+    `step_times` over `PROFILE_STEPS` steps, then one of `ops.hamming_distances`
+    timed at phase A's shape (its 256 query signatures x 3000 items) and at
+    the largest dense catalog (the same queries x phase B's first
+    `STREAM_MIN_ITEMS` - 1 item signatures). Prints the card's name and
+    power limit first."""
+    from repro_torch.core.lsh import lsh_signature
+    from repro_torch.core.nns import STREAM_MIN_ITEMS
+    from repro_torch.kernels import build, ops
+    from repro_torch.serving import recsys_engine as rs_mod
+    from repro_torch.utils import resolve_device
+
+    device = resolve_device("cuda")
+    print(f"card: {card_line()}", flush=True)
+    build.build_all()
+    _, proj, inputs = serve_inputs(args.seed, device)
+    sigs = {}
+    for name, inp in inputs.items():
+        eng = rs_mod.RecSysEngine.build(
+            inp["params"], inp["cfg"], lsh_proj=proj, hot_rows=HOT_ROWS,
+            item_freqs=inp["freqs"], device=device)
+        batch = inp["batches"][0]
+        sigs[name] = (lsh_signature(eng.user_embedding(batch),
+                                    eng.lsh_proj), eng.item_sigs)
+        print(json.dumps({"src": str(args.src), "phase": name,
+                          "n_items": inp["cfg"].n_items, "batch": BATCH,
+                          **step_times(eng, batch, rs_mod, ops,
+                                       PROFILE_STEPS)}), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    qa, db_a = sigs["A"]
+    db_max = sigs["B"][1][:STREAM_MIN_ITEMS - 1]
+    print(json.dumps({"src": str(args.src), "hamming_ms": {
+        f"q={qa.shape[0]} n={db.shape[0]}": timed_ms(
+            lambda: ops.hamming_distances(qa, db), reps)
+        for db, reps in ((db_a, 200), (db_max, 20))}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--record", type=Path, default=None,
                     help="write the full record of the run here as JSON")
+    ap.add_argument("--profile", action="store_true",
+                    help="only time phases A and B's serve steps and the "
+                         "Hamming op (see `profile_run`)")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="with --profile: the port's sources to import, "
+                         "e.g. a parent tree unpacked with git archive")
     args = ap.parse_args(argv)
+    if args.src != SRC and not args.profile:
+        ap.error("--src needs --profile")
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
+    if not (args.src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port sources under {args.src}",
+              file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
-    from repro_torch.core.lsh import lsh_signature, make_lsh_projections
+    sys.path.insert(0, str(args.src.resolve()))
+    if args.profile:
+        return profile_run(args)
+    from repro_torch.core.lsh import lsh_signature
     from repro_torch.core.nns import (
         STREAM_MIN_ITEMS,
         _plan_streams,
@@ -832,7 +956,6 @@ def main(argv=None) -> int:
         fixed_radius_nns,
     )
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.models.recsys import default_youtubednn_config
     from repro_torch.serving import recsys_engine as rs_mod
     from repro_torch.utils import resolve_device
 
@@ -847,33 +970,26 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.2f} s (nvcc, {len(build.KERNELS)} "
           f"sources in parallel)", flush=True)
 
-    rng = np.random.default_rng(args.seed)
-    gen = torch.Generator().manual_seed(args.seed)
-    cfg = default_youtubednn_config()
-    proj = make_lsh_projections(cfg.embed_dim, 256, generator=gen,
-                                device=device)
+    gen, proj, inputs = serve_inputs(args.seed, device)
     record = {"card": card, "build_s": build_s, "seed": args.seed}
 
     # -- phase A: MovieLens config, dense plan -----------------------------
-    params_a = numpy_params(cfg, args.seed)
-    freqs_a = np.bincount(popular_items(rng, cfg.n_items, 1 << 16),
-                          minlength=cfg.n_items)
+    cfg, params_a = inputs["A"]["cfg"], inputs["A"]["params"]
     eng_a = rs_mod.RecSysEngine.build(
-        params_a, cfg, lsh_proj=proj, hot_rows=HOT_ROWS, item_freqs=freqs_a,
-        device=device)
+        params_a, cfg, lsh_proj=proj, hot_rows=HOT_ROWS,
+        item_freqs=inputs["A"]["freqs"], device=device)
     check(not _plan_streams(eng_a.item_sigs.shape[0], eng_a.scan_block),
           "phase A should take the dense plan")
-    batches_a = [make_batch(rng, cfg, BATCH) for _ in range(N_BATCHES_A)]
+    batches_a = inputs["A"]["batches"]
     a = serve_phase(eng_a, batches_a, cfg.n_items, ops)
     a["cpu_check"] = cpu_reference_check(params_a, cfg, proj, eng_a,
                                          batches_a[0], rs_mod)
-    a["stage_ms"] = stage_ms(eng_a, batches_a[0], rs_mod)
     check(a["launches"]["hamming_distances"] == N_BATCHES_A,
           f"phase A launches {a['launches']}")
     check(a["launches"]["embedding_pool"] == 2 * N_BATCHES_A,
           f"phase A launches {a['launches']} (one pool launch a stage)")
     check(a["launches"]["streaming_nns"] == 0, "phase A streamed")
-    a["profile"] = serve_profile(eng_a, batches_a[0], ops)
+    a.update(step_times(eng_a, batches_a[0], rs_mod, ops, STEPS))
     print(f"phase A (dense, {cfg.n_items} items): "
           f"{a['ms_per_batch']:.3f} ms/batch of {BATCH}, "
           f"{a['queries_per_s']:.0f} q/s, launches {a['launches']}, "
@@ -881,29 +997,24 @@ def main(argv=None) -> int:
           f"cpu check {a['cpu_check']}", flush=True)
 
     # -- phase B: 1,048,576 items, pruned streaming plan --------------------
-    cfg_b = cfg._replace(n_items=N_ITEMS_B)
-    params_b = numpy_params(cfg_b, args.seed + 1)
-    freqs_b = np.bincount(popular_items(rng, N_ITEMS_B, 1 << 18),
-                          minlength=N_ITEMS_B)
     t0 = time.perf_counter()
     eng_b = rs_mod.RecSysEngine.build(
-        params_b, cfg_b, lsh_proj=proj, hot_rows=HOT_ROWS,
-        item_freqs=freqs_b, device=device)
+        inputs["B"]["params"], inputs["B"]["cfg"], lsh_proj=proj,
+        hot_rows=HOT_ROWS, item_freqs=inputs["B"]["freqs"], device=device)
     torch.cuda.synchronize()
     build_b_s = time.perf_counter() - t0
     check(_plan_streams(eng_b.item_sigs.shape[0], eng_b.scan_block)
           and eng_b.block_summary is not None,
           "phase B should take the pruned streaming plan")
-    batches_b = [make_batch(rng, cfg_b, BATCH) for _ in range(N_BATCHES_B)]
+    batches_b = inputs["B"]["batches"]
     b = serve_phase(eng_b, batches_b, N_ITEMS_B, ops)
     b["build_s"] = build_b_s
-    b["stage_ms"] = stage_ms(eng_b, batches_b[0], rs_mod)
     check(b["launches"]["streaming_nns"] == N_BATCHES_B,
           f"phase B launches {b['launches']}")
     check(b["launches"]["embedding_pool"] == 2 * N_BATCHES_B,
           f"phase B launches {b['launches']} (one pool launch a stage)")
     check(b["launches"]["hamming_distances"] == 0, "phase B went dense")
-    b["profile"] = serve_profile(eng_b, batches_b[0], ops)
+    b.update(step_times(eng_b, batches_b[0], rs_mod, ops, STEPS))
     touched = b["results"][0].nns.blocks_touched
     b["blocks_touched_mean"] = float(touched.float().mean())
     b["summary_blocks"] = eng_b.block_summary.n_blocks

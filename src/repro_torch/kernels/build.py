@@ -117,8 +117,12 @@ class CudaKernel:
 
 
 def check_tensor(op: str, t, name: str, dtype, device) -> None:
-    """Raise unless `t` is a contiguous `dtype` tensor on `device`."""
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` (the CPU
+    or a CUDA device with its index). Passing costs attribute reads only:
+    a serve stage checks a dozen tensors a batch."""
+    index = -1 if device.type == "cpu" else device.index
+    if (t.dtype is not dtype or t.get_device() != index
+            or not t.is_contiguous()):
         raise ValueError(
             f"{op}: {name} must be a contiguous {dtype} tensor on {device}, "
             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")

@@ -8,12 +8,14 @@
 //           `cached_embedding_bag`): the lookup stage's five user-feature
 //           bags and mean-pooled history, and the rank stage's candidate
 //           rows and genre bag.
-// Bound on the H100: the bytes: d + 4 a live slot (an int8 row and its f32
-//           scale), the ids, and the f32 output, 4d a row: ~2.2 MB at the
-//           rank stage's 256 x 50 candidate rows of 32 (mostly the output),
-//           0.65 us at 3.35 TB/s. A stage is a few thousand rows, so what a
-//           launch costs (~2 us on the card, more on the host) weighs more:
-//           one launch a stage is the design unit, not one table.
+// Bound on the H100: the bytes: d + 4 for each distinct live row of a
+//           table (an int8 row and its f32 scale, read once however many
+//           slots name it), the ids, and the f32 output, 4d a row: ~1.8 MB
+//           at the rank stage's 256 x 50 candidate rows of 32 (mostly the
+//           output), 0.53 us at 3.35 TB/s. A stage is a few thousand rows,
+//           so what a launch costs (~2 us on the card, more on the host)
+//           weighs more: one launch a stage is the design unit, not one
+//           table.
 // Design:   a stage is a list of up to 8 segments. A segment is one table
 //           (int8 values, f32 scales, optionally its sorted hot ids and
 //           pinned f32 rows) and one (B, L) id array (-1 = padding, ids past
@@ -35,7 +37,10 @@
 //           added to the stage's two int32 counters by one atomic a block.
 //   Rows:   one-slot rows (the candidate rows, the one-id feature bags):
 //           a lane a row, its slot's int8 row and scale in two 16-byte and
-//           one 4-byte load, its pooled row out in four 16-byte stores.
+//           one 4-byte load, its pooled row out in four 16-byte stores. A
+//           warp takes up to 32 rows, but a small segment gets fewer a warp
+//           so that its blocks spread over the SMs: a 256-row bag runs as
+//           32 blocks, not one.
 //   Bags:   L > 1 (the history): a warp a row. For each 32 columns, lane l
 //           writes slot l's 32 terms to row l of the warp's tile in shared
 //           memory, and lane c sums column c down the tile in slot order.
@@ -323,6 +328,16 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
                              void* stream) {
   if (n_segs < 1 || n_segs > kMaxSegs)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the card's SM count, read once (it only shapes the grid)
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sms = max(sms, 1);
+  }
   Params p{};
   p.n_segs = n_segs;
   p.counters = static_cast<int*>(counters);
@@ -355,8 +370,12 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
         static_cast<long long>(g.rows) * g.L >= INT_MAX ||
         g.out_stride < g.column + g.d)
       return static_cast<int>(cudaErrorInvalidValue);
-    // a lane a row for one-slot rows, else a warp a row
-    g.rows_per_warp = g.L == 1 ? 32 : 1;
+    // a lane a row for one-slot rows, up to 32 rows a warp but fewer in a
+    // small segment, so that its blocks spread over the SMs; else a warp a
+    // row
+    g.rows_per_warp =
+        g.L == 1 ? min(32, max(1, (g.rows + kWarps * sms - 1) / (kWarps * sms)))
+                 : 1;
     const auto aligned = [](const void* ptr) {
       return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
     };

@@ -102,7 +102,6 @@ class PoolPlan:
                        int(seg.masked)]
         self.segments = segments
         self.device = dev
-        self._index = segments[0].values.get_device()
         self._ends = [seg.column + seg.values.shape[1] for seg in segments]
         self._rows = [seg.mode == "rows" for seg in segments]
         self._masked = [seg.masked for seg in segments]
@@ -130,13 +129,6 @@ class PoolPlan:
                 raise ValueError(f"{op}: hot_rows "
                                  f"{tuple(seg.hot_rows.shape)}")
 
-    def _check_call(self, t, dtype, name):
-        """`check_tensor` for this call's tensors, the common case first:
-        a stage calls this a dozen times, so its cost is host time."""
-        if (t.dtype is not dtype or t.get_device() != self._index
-                or not t.is_contiguous()):
-            _check("embedding_pool", t, name, dtype, self.device)
-
     def launch(self, ids, outs, valid=None, weights=None):
         """The kernel on this call's tensors -> counters or None."""
         op = "embedding_pool"
@@ -147,15 +139,15 @@ class PoolPlan:
                              f"{len(outs)} outputs")
         vptr = None
         if valid is not None:
-            self._check_call(valid, torch.bool, "valid")
+            _check(op, valid, "valid", torch.bool, self.device)
             vptr = valid.data_ptr()
         call = []
         checked = None
         for s in range(n):
             x, out = ids[s], outs[s]
-            self._check_call(x, torch.int32, "ids")
+            _check(op, x, "ids", torch.int32, self.device)
             if out is not checked:  # a stage's segments share their outputs
-                self._check_call(out, torch.float32, "out")
+                _check(op, out, "out", torch.float32, self.device)
                 checked = out
             B, L = x.shape
             if self._rows[s]:  # one slot a row, N rows a batch row
@@ -172,7 +164,8 @@ class PoolPlan:
                 raise ValueError(f"{op}: valid {tuple(valid.shape)}")
             wptr = 0
             if weights is not None and weights[s] is not None:
-                self._check_call(weights[s], torch.float32, "weights")
+                _check(op, weights[s], "weights", torch.float32,
+                       self.device)
                 if weights[s].shape != x.shape:
                     raise ValueError(f"{op}: weights "
                                      f"{tuple(weights[s].shape)}")
@@ -215,7 +208,12 @@ def embedding_pool(table_values, table_scales, ids, weights=None):
 
 
 def hamming_distances(queries, db):
-    """(q,w) x (n,w) packed int32 signatures -> (q,n) int32 distances."""
+    """(q,w) x (n,w) packed int32 signatures -> (q,n) int32 distances.
+
+    On the card, for n % 4 != 0, the result is the (q, n) view of rows
+    padded to a multiple of 4 (the kernel's 16-byte stores): its row stride
+    is that padded length, so it is not contiguous. Call `.contiguous()`
+    before passing its data pointer on or calling `.view`."""
     if use_kernel("hamming_distances", queries):
         return _hamming_cuda(queries, db)
     return ref.hamming_distance_ref(queries, db)

@@ -83,15 +83,17 @@ def _plain_hamming(queries, db, chunk=1 << 15):
 @pytest.mark.parametrize("n", [1, 7, 3000, 262143])
 @pytest.mark.parametrize("words", [1, 3, 5, 8])
 def test_hamming_tensor_core_shapes_equal_plain(cuda, q, n, words):
-    """The tensor-core Hamming kernel around its 128 x 64 tile: one query
-    to phase A's 256, one row to the largest dense catalog (n odd, so the
-    output rows start off 16-byte boundaries)."""
+    """The tensor-core Hamming kernel around its 64 x 64 tile: one query
+    to phase A's 256, one row to the largest dense catalog. For n odd the
+    kernel writes rows padded to a multiple of 4 and the op returns the
+    (q, n) view of them, with that row stride."""
     rng = np.random.default_rng(q + n + words)
     queries, db = _sigs(rng, q, words, cuda), _sigs(rng, n, words, cuda)
     before = build.HAMMING.launches
     got = ops.hamming_distances(queries, db)
     torch.cuda.synchronize()
     assert build.HAMMING.launches == before + 1
+    assert got.shape == (q, n) and got.stride() == (-(-n // 4) * 4, 1)
     assert torch.equal(got, _plain_hamming(queries, db))
 
 
