@@ -36,7 +36,24 @@
    weights quantized per row / column), within 5% of the bf16 product.
    Then `torch.profiler` traces one blocked prefill, one flash prefill and
    one decode step: kernels run, device time, and the idle share.
-5. Phase C: each kernel against its plain version on the card at the
+5. Phase E: the serving front-ends (`make_server`) over phase A's and B's
+   engines. E.1: one seeded stream of 2,085 single-user queries (8 full
+   256-query buckets and a 37-query tail) through sync, pipelined (depth 2)
+   and concurrent (2 tenants, depth 2, an unbounded queue staged before the
+   drain starts, so its buckets are sync's) serving: every ticket ok, no
+   error, items, scores and cache counters bit-equal across the modes and
+   to `RecSysEngine.serve` on the same stacked buckets, and per bucket 2
+   pool launches, 1 Hamming launch, no streaming launch. E.2: 1,024 queries
+   through sync and pipelined serving on the 1M-item pruned streaming plan:
+   bit-equal, 1 streaming launch a bucket, the same blocks touched in the
+   registry. Each mode is warmed, then its q/s is the median of 3 runs.
+   E.3: a `LoadGen` replay (2 tenants, Zipf 1.1, 2048 queries, 2 s) into
+   the concurrent front-end at half E.1's pipelined q/s, then at a tenth of
+   it: p50 and p99 latency, shed and error tickets (errors fail). E.4:
+   `ServeResult.cost` equals the paper's cost model, and `hit_rate` in
+   fp32, int8 and lsh modes on the synthetic MovieLens set gives the same
+   hit counts with the plain versions.
+6. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -61,9 +78,11 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Prints one line per kernel, the card's name and power limit, a `kernels`
-JSON line, and last `{"ok": true, "device": {...}}`; `--record PATH`
-also writes the full record as JSON. Any failure exits nonzero. Without a
+Runs A, B, E, D, C in that order. Prints one line per phase (phase E's
+with the card's name and power limit), one line per kernel, the card's
+name and power limit as `nvidia-smi` gives them, a `kernels` JSON line,
+and last `{"ok": true, "device": {...}}`; `--record PATH` also writes
+the full record as JSON. Any failure exits nonzero. Without a
 GPU, or without the repository beside it, it exits 1 and prints no
 result.
 
@@ -77,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -128,6 +148,15 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # batch 4), then float32 with a ragged kv length and the causal offset
 FLASH_CASES = (("phase D", 128, 2048, 2048, 128, torch.bfloat16, 0),
                ("f32 ragged", 8, 300, 1000, 128, torch.float32, 700))
+# phase E: the serving front-ends. 2,085 queries are 8 full buckets and a
+# 37-query tail (the 64 bucket); the load replay runs at half the
+# pipelined rate of E.1
+N_QUERIES_E1 = 8 * BATCH + 37
+N_QUERIES_E2 = 4 * BATCH
+LOAD_S = 2.0
+LOAD_TENANTS = 2
+LOAD_POOL = 2048
+LOAD_FRACS = (0.5, 0.1)
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -398,6 +427,331 @@ def cpu_reference_check(params, cfg, proj, gpu_engine, batch, rs_mod):
         check(torch.equal(getattr(n_gpu, f).cpu(), getattr(n_cpu, f)),
               f"NNS {f} differ from the CPU engine")
     return {"u_max_abs_err": err, "query_sig_word_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# phase E: the serving front-ends on the card
+# ---------------------------------------------------------------------------
+class GcPauses:
+    """Python's full (generation-2) garbage collections inside `with`
+    blocks: their count and longest and total pause, summed over every
+    block this object timed. A pause stops every thread of the process,
+    so it lands on whichever tickets are in flight."""
+
+    def __init__(self):
+        self.pauses: list[float] = []
+        self._t0 = None
+
+    def _callback(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append(time.perf_counter() - self._t0)
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def summary(self) -> dict:
+        return {"gen2_collections": len(self.pauses),
+                "gen2_max_ms": max(self.pauses, default=0.0) * 1e3,
+                "gen2_total_ms": sum(self.pauses) * 1e3}
+
+
+def split_queries(batch: dict) -> list[dict]:
+    """A stacked batch as single-user queries (the front-ends' `submit`
+    schema: user-feature scalars, the history vector, the genre)."""
+    n = batch["genre"].shape[0]
+    return [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+
+def run_mode(eng, mode: str, knobs: dict, queries, ops) -> dict:
+    """One fresh `make_server(eng, mode)` serving `queries`, its kernel
+    launches counted over exactly that run; every ticket must be ok and
+    the server must report no error."""
+    from repro_torch.serving import make_server
+
+    server = make_server(eng, mode, max_batch=BATCH, **knobs)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    served = server.serve_many(queries)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = server.stats()
+    snap = server.snapshot()
+    server.close()
+    check(all(s.status == "ok" for s in served),
+          f"{mode}: tickets not ok: {sorted({s.status for s in served})}")
+    check(st["n_served"] == len(queries) and st["n_errors"] == 0
+          and st["last_error"] is None,
+          f"{mode}: served {st['n_served']} of {len(queries)}, errors "
+          f"{st['n_errors']}, last error {st['last_error']}")
+    return {"items": np.stack([s.items for s in served]),
+            "scores": np.stack([s.scores for s in served]),
+            "launches": launches,
+            "wall_s": wall, "stats": st,
+            "blocks_touched": snap.get("nns.blocks_touched", 0),
+            # host-clock ms a bucket, from the server's stage histograms
+            "stage_ms": {s: snap[f"serving.stage.{s}_s.mean"] * 1e3
+                         for s in ("dispatch", "scan", "rank")
+                         if f"serving.stage.{s}_s.mean" in snap}}
+
+
+def modes_phase(eng, queries, modes: dict, ops, n_buckets: int,
+                scan_kernel: str) -> dict:
+    """E.1 / E.2: a counted run of each mode on a fresh server (launches:
+    2 pool launches and 1 `scan_kernel` launch a bucket, none of the other
+    scan kernel); every mode must give sync's items, scores, cache
+    counters and blocks touched, bit for bit. Then one long-lived server a
+    mode, warmed, serves `queries` in 3 rounds, the modes taking turns
+    within a round; q/s is the median of a mode's 3 runs (a fresh server
+    would also time its start, such as the drain thread's first CUDA
+    calls). Last, `torch.profiler` over one run of sync and one of
+    pipelined serving: the device's busy time and idle share of the run
+    (the profiler slows the host, so the share is an upper bound)."""
+    from repro_torch.serving import make_server
+
+    other = ({"hamming_distances", "streaming_nns"} - {scan_kernel}).pop()
+    runs = {mode: run_mode(eng, mode, knobs, queries, ops)
+            for mode, knobs in modes.items()}
+    servers = {mode: make_server(eng, mode, max_batch=BATCH, **knobs)
+               for mode, knobs in modes.items()}
+    for server in servers.values():
+        server.serve_many(queries[:BATCH + 37])
+    walls = {mode: [] for mode in modes}
+    pauses = {mode: GcPauses() for mode in modes}
+    for _ in range(3):
+        for mode, server in servers.items():
+            t0 = time.perf_counter()
+            with pauses[mode]:
+                served = server.serve_many(queries)
+            walls[mode].append(time.perf_counter() - t0)
+            check(all(s.status == "ok" for s in served),
+                  f"{mode}: a timed run's tickets are not all ok")
+    for mode, server in servers.items():
+        st = server.stats()
+        server.close()
+        check(st["n_errors"] == 0 and st["last_error"] is None
+              and st["n_served"] == 3 * len(queries) + BATCH + 37,
+              f"{mode}: timed server served {st['n_served']}, errors "
+              f"{st['n_errors']}")
+    out = {}
+    for mode, run in runs.items():
+        lc = run["launches"]
+        check(lc["embedding_pool"] == 2 * n_buckets
+              and lc[scan_kernel] == n_buckets and lc[other] == 0,
+              f"{mode}: launches {lc} for {n_buckets} buckets")
+        out[mode] = {"queries_per_s": len(queries)
+                     / statistics.median(walls[mode]),
+                     "wall_ms": [w * 1e3 for w in walls[mode]],
+                     "launches": lc, "stage_ms": run["stage_ms"],
+                     "gc": pauses[mode].summary(),
+                     "cache_hit_rate": run["stats"]["cache_hit_rate"],
+                     "n_batches": run["stats"]["n_batches"],
+                     "blocks_touched": run["blocks_touched"]}
+    base = runs["sync"]
+    for mode, run in runs.items():
+        check(np.array_equal(run["items"], base["items"])
+              and np.array_equal(run["scores"], base["scores"]),
+              f"{mode}: items or scores differ from sync")
+        for key in ("cache_hits", "cache_lookups", "n_batches", "n_padded"):
+            check(run["stats"][key] == base["stats"][key],
+                  f"{mode}: {key} {run['stats'][key]} != sync's "
+                  f"{base['stats'][key]}")
+        check(run["blocks_touched"] == base["blocks_touched"],
+              f"{mode}: blocks touched differ from sync")
+    for mode in ("sync", "pipelined"):
+        server = make_server(eng, mode, max_batch=BATCH, **modes[mode])
+        prof = device_profile(lambda: server.serve_many(queries))
+        server.close()
+        out[mode]["profile"] = {k: prof[k] for k in (
+            "kernels", "device_ms", "wall_ms", "idle_share")}
+    return out, base
+
+
+def check_against_serve(eng, queries, base) -> None:
+    """E.1: sync's rows equal `engine.serve` on the same stacked buckets
+    (the batcher's own stacking: -1 padding rows, the valid mask)."""
+    from repro_torch.serving import make_server
+
+    stacker = make_server(eng, "sync", max_batch=BATCH)
+    row = 0
+    for lo in range(0, len(queries), BATCH):
+        chunk = queries[lo:lo + BATCH]
+        bucket = next(b for b in stacker.buckets if b >= len(chunk))
+        r = eng.serve(stacker._stack_np(chunk, bucket))
+        n = len(chunk)
+        check(np.array_equal(r.items[:n].cpu().numpy(),
+                             base["items"][row:row + n])
+              and np.array_equal(r.topk.scores[:n].cpu().numpy(),
+                                 base["scores"][row:row + n]),
+              f"sync serving differs from engine.serve (bucket at {lo})")
+        row += n
+    stacker.close()
+
+
+def load_phase(eng, pool, rate_qps: float, seed: int) -> dict:
+    """E.3: an open-loop `LoadGen` replay into the concurrent front-end
+    (warmed first); p50 / p99 of the admitted tickets, shed and errors."""
+    from repro_torch.serving import LoadGen, make_server, summarize_trace
+
+    gen = LoadGen(rate_qps=rate_qps, duration_s=LOAD_S, tenants=LOAD_TENANTS,
+                  pool_size=LOAD_POOL, zipf_a=1.1, seed=seed)
+    server = make_server(eng, "concurrent", max_batch=BATCH,
+                         tenants=LOAD_TENANTS, depth=2)
+    server.serve_many(pool[:BATCH + 37])
+    server.take_trace()
+    t0 = time.perf_counter()
+    with GcPauses() as pauses:
+        replay = gen.replay(server, pool)
+        submit_s = time.perf_counter() - t0
+        server.flush()
+    trace = server.take_trace()
+    st = server.stats()
+    server.close()
+    s = summarize_trace(trace, gen.duration_s)
+    n_err = sum(v["n_errors"] for v in s.per_tenant.values())
+    check(n_err == 0 and st["n_errors"] == 0 and st["last_error"] is None,
+          f"load replay: {n_err} error tickets, last error "
+          f"{st['last_error']}")
+    check(len(trace) == len(replay), "load replay lost tickets")
+    return {"offered_qps": s.offered_qps, "achieved_qps": s.achieved_qps,
+            "p50_ms": s.p50_ms, "p99_ms": s.p99_ms,
+            "n_submitted": len(replay),
+            "n_shed": sum(v["n_shed"] for v in s.per_tenant.values()),
+            "n_errors": n_err, "shed_frac": s.shed_frac,
+            "replay_submit_s": submit_s, "rate_qps": rate_qps,
+            "duration_s": gen.duration_s, "tenants": LOAD_TENANTS,
+            "pool_size": LOAD_POOL, "n_batches": st["n_batches"],
+            "gc": pauses.summary()}
+
+
+def cost_and_hit_rate(eng, seed: int) -> dict:
+    """E.4: `ServeResult.cost` equals the port's cost model at the
+    engine's candidate count; `hit_rate` in the paper's three modes on the
+    synthetic MovieLens set, with the kernels and with the plain versions
+    (the same hit counts). Random weights: HR@10 says nothing of
+    accuracy."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.data.synthetic import make_movielens
+    from repro_torch.serving import hit_rate
+
+    e2e = cm.end_to_end_movielens(n_candidates=eng.n_candidates)
+    want = cm.OpCost(latency_ns=e2e["imars_latency_us"] * 1e3,
+                     energy_pj=e2e["imars_energy_uj"] * 1e6)
+    data = make_movielens(n_items=eng.item_table_q.values.shape[0],
+                          seed=seed)
+    r = eng.serve({**{k: v[:BATCH] for k, v in data.user_feats.items()},
+                   "history": data.histories[:BATCH],
+                   "genre": data.genres[:BATCH]})
+    check(r.cost == want and r.cost == eng.query_cost(),
+          f"ServeResult.cost {r.cost} != the cost model's {want}")
+    out = {"cost_model": {"latency_us": r.cost.latency_us,
+                          "energy_uj": r.cost.energy_uj,
+                          "imars_qps": e2e["imars_qps"],
+                          "gpu_paper_qps": e2e["gpu_qps"],
+                          "latency_speedup": e2e["latency_speedup"],
+                          "energy_reduction": e2e["energy_reduction"]},
+           "n_users": data.n_users, "hr10": {}}
+    for mode in ("fp32", "int8", "lsh"):
+        hr = hit_rate(eng, data, mode=mode)
+        with plain_versions():
+            hr_plain = hit_rate(eng, data, mode=mode)
+        check(round(hr * data.n_users) == round(hr_plain * data.n_users),
+              f"hit_rate {mode}: {hr} with the kernels, {hr_plain} plain")
+        out["hr10"][mode] = hr
+    return out
+
+
+def mode_summary(mode: str, v: dict) -> str:
+    """One mode's figures for a phase E line."""
+    text = (f"{mode} {v['queries_per_s']:.0f} q/s (runs "
+            f"{[round(w, 2) for w in v['wall_ms']]} ms; ms a bucket "
+            f"{ {s: round(x, 3) for s, x in v['stage_ms'].items()} }; "
+            f"full GCs {v['gc']['gen2_collections']}, longest "
+            f"{v['gc']['gen2_max_ms']:.1f} ms")
+    if "profile" in v:
+        p = v["profile"]
+        text += (f"; profiled run: {p['device_ms']:.3f} ms on the card in "
+                 f"{p['wall_ms']:.1f} ms, idle share {p['idle_share']:.3f}")
+    return text + ")"
+
+
+def serving_phase(eng_a, eng_b, inputs, seed: int, ops, card: str) -> dict:
+    """Phase E: the front-ends over phase A's and phase B's engines."""
+    rng = np.random.default_rng(seed + 4)
+    qa = split_queries(make_batch(rng, inputs["A"]["cfg"], N_QUERIES_E1))
+    qb = split_queries(make_batch(rng, inputs["B"]["cfg"], N_QUERIES_E2))
+    pool = split_queries(make_batch(rng, inputs["A"]["cfg"], LOAD_POOL))
+    e = {}
+    # E.1: sync, pipelined and concurrent on the dense plan. The concurrent
+    # queue (unbounded: a closed-loop stream sheds nothing) is staged before
+    # its drain starts, so its buckets are sync's and its bits must be too
+    n_a = -(-N_QUERIES_E1 // BATCH)
+    e["E1"], base = modes_phase(
+        eng_a, qa, {"sync": {}, "pipelined": {"depth": 2},
+                    "concurrent": {"tenants": 2, "depth": 2,
+                                   "queue_depth": None,
+                                   "autostart": False}},
+        ops, n_a, "hamming_distances")
+    check_against_serve(eng_a, qa, base)
+    print(f"phase E.1 (make_server on phase A's engine, {N_QUERIES_E1} "
+          f"single-user queries, {n_a} buckets; {card}): " + ", ".join(
+              mode_summary(m, v) for m, v in e["E1"].items())
+          + f"; bit-equal across modes and to engine.serve, launches "
+          f"{e['E1']['sync']['launches']}, cache hit rate "
+          f"{e['E1']['sync']['cache_hit_rate']:.4f}", flush=True)
+    # E.2: sync and pipelined on the 1M-item pruned streaming plan
+    n_b = -(-N_QUERIES_E2 // BATCH)
+    e["E2"], _ = modes_phase(eng_b, qb, {"sync": {},
+                                         "pipelined": {"depth": 2}},
+                             ops, n_b, "streaming_nns")
+    check(e["E2"]["sync"]["blocks_touched"] > 0,
+          "phase E.2: no blocks touched in the registry")
+    print(f"phase E.2 (make_server on phase B's engine, {N_QUERIES_E2} "
+          f"queries, pruned streaming; {card}): " + ", ".join(
+              mode_summary(m, v) for m, v in e["E2"].items())
+          + f"; bit-equal, blocks touched {e['E2']['sync']['blocks_touched']}"
+          f", launches {e['E2']['pipelined']['launches']}", flush=True)
+    # E.3: open-loop load at half the pipelined rate of E.1, then at a
+    # tenth of it (a second point of the latency-vs-load curve)
+    e["E3"] = {}
+    for frac in LOAD_FRACS:
+        ld = load_phase(eng_a, pool,
+                        frac * e["E1"]["pipelined"]["queries_per_s"],
+                        seed + 5)
+        e["E3"][f"{frac:g} of pipelined"] = ld
+        print(f"phase E.3 (LoadGen into the concurrent front-end, "
+              f"{LOAD_TENANTS} tenants, zipf 1.1, pool {LOAD_POOL}, "
+              f"{LOAD_S} s at {ld['rate_qps']:.0f} q/s offered, {frac:g} "
+              f"of E.1's pipelined q/s; {card}): p50 {ld['p50_ms']:.3f} "
+              f"ms, p99 {ld['p99_ms']:.3f} ms, achieved "
+              f"{ld['achieved_qps']:.0f} q/s, submitted "
+              f"{ld['n_submitted']}, shed {ld['n_shed']}, errors "
+              f"{ld['n_errors']}; full GCs {ld['gc']['gen2_collections']},"
+              f" longest {ld['gc']['gen2_max_ms']:.1f} ms, total "
+              f"{ld['gc']['gen2_total_ms']:.1f} ms", flush=True)
+    # E.4: the paper's cost model and hit_rate
+    e["E4"] = cost_and_hit_rate(eng_a, seed)
+    c = e["E4"]["cost_model"]
+    print(f"phase E.4: ServeResult.cost == the paper's analytic FeFET model "
+          f"(not measured): {c['latency_us']:.3f} us and "
+          f"{c['energy_uj']:.4f} uJ a query, {c['imars_qps']:.0f} q/s "
+          f"modelled against the paper's GPU baseline "
+          f"{c['gpu_paper_qps']:.0f} q/s; HR@10 on the synthetic MovieLens "
+          f"set ({e['E4']['n_users']} users), random weights, equal with "
+          f"the plain versions: {e['E4']['hr10']} ({card})", flush=True)
+    e["launches"] = {k: sum(v["launches"][k] for ph in ("E1", "E2")
+                            for v in e[ph].values())
+                     for k in e["E1"]["sync"]["launches"]}
+    return e
 
 
 # ---------------------------------------------------------------------------
@@ -1025,6 +1379,9 @@ def main(argv=None) -> int:
           f"{b['summary_blocks']}, cache {b['cache']}, "
           f"stages {b['stage_ms']}", flush=True)
 
+    # -- phase E: the serving front-ends over A's and B's engines ----------
+    e = serving_phase(eng_a, eng_b, inputs, args.seed, ops, card)
+
     # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
     lm_rec, int8_operands = lm_phase(args.seed, device, ops)
     torch.cuda.empty_cache()
@@ -1064,13 +1421,15 @@ def main(argv=None) -> int:
     kernels.append(hamming_entry(
         qa, eng_a.item_sigs, eng_b.item_sigs[:STREAM_MIN_ITEMS - 1], ops,
         ref, a["launches"]["hamming_distances"]
-        + b["launches"]["hamming_distances"]))
+        + b["launches"]["hamming_distances"]
+        + e["launches"]["hamming_distances"]))
 
     # embedding pool: the lookup and rank stages' segment lists of phase A
     # (one grouped launch each), and the single-table public op
     kernels.append(pool_entry(
         eng_a, batches_a[0], a["results"][0].nns.indices, ops, ref,
-        a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]))
+        a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]
+        + e["launches"]["embedding_pool"]))
 
     # streaming NNS at phase B's shapes: 256 queries x 1,048,576 items
     qb = lsh_signature(eng_b.user_embedding(batches_b[0]), eng_b.lsh_proj)
@@ -1127,7 +1486,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/streaming_nns.cu",
         "replaces": "src/repro/kernels/streaming_nns.py:346",
         "launches": a["launches"]["streaming_nns"]
-        + b["launches"]["streaming_nns"],
+        + b["launches"]["streaming_nns"] + e["launches"]["streaming_nns"],
         "max_abs_err": 0.0,
         "ms": timed_ms(lambda: ops.streaming_nns_cuda(
             qb, db_b, **kw, **variants["pruned"]), 20),
@@ -1170,7 +1529,8 @@ def main(argv=None) -> int:
 
     for phase in (a, b):
         phase.pop("results")
-    record.update(phase_a=a, phase_b=b, phase_d=lm_rec, kernels=kernels,
+    record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_e=e,
+                  kernels=kernels,
                   device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -235,3 +235,16 @@ def fixed_radius_nns(
         idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
         dist = torch.nn.functional.pad(dist, (0, pad), value=BIG_DIST)
     return NNSResult(indices=idx, distances=dist, counts=counts)
+
+
+def cosine_topk(query_vecs: torch.Tensor, db_vecs: torch.Tensor, k: int):
+    """Exact cosine top-k (flat search) -> (scores (q, k) f32, ids (q, k)
+    int32). A stable descending sort, so ties go to the lower id as
+    `jax.lax.top_k` gives them."""
+    qn = query_vecs / torch.linalg.norm(
+        query_vecs, dim=-1, keepdim=True).clamp(min=1e-12)
+    dn = db_vecs / torch.linalg.norm(
+        db_vecs, dim=-1, keepdim=True).clamp(min=1e-12)
+    sims = qn @ dn.T
+    vals, idx = torch.sort(sims, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)

@@ -25,6 +25,22 @@ def _mlp_apply(layers, x, final_act=False):
     return x
 
 
+def user_tower(p, cfg: "YoutubeDNNConfig", batch: dict) -> torch.Tensor:
+    """Filtering stage DNN on the float32 tables: the user embedding u_i
+    (B, 32), as the reference's `user_tower` (no quantization, no cache).
+    History slots of -1 read no row; the pooled history is their mean."""
+    feats = []
+    for name in sorted(cfg.user_features.keys()):
+        feats.append(p["tables"][name][batch[name].long()])  # (B, d)
+    hist = batch["history"]  # (B, H) item ids, -1 padded
+    valid = (hist >= 0).to(torch.float32)
+    rows = p["item_table"][hist.clamp(min=0).long()] * valid[..., None]
+    pooled = rows.sum(1) / valid.sum(1, keepdim=True).clamp(min=1.0)
+    feats.append(pooled)
+    x = torch.cat(feats, dim=-1)
+    return _mlp_apply(p["filter_mlp"], x)
+
+
 class YoutubeDNNConfig(NamedTuple):
     n_items: int = 3000
     user_features: Mapping[str, int] = None  # name -> cardinality

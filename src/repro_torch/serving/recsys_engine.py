@@ -20,19 +20,29 @@ them). The two stages' pool plans (`kernels/ops.py:PoolPlan`: tables, hot
 sets, modes and output columns) do not depend on the batch and are built
 with the engine. The frozen engine serves `delta=None` only; the
 live-catalog paths of `serving/catalog.py` stay for its port.
-`ServeResult.cost` is None: the paper's cost model is not ported yet.
+
+The same three stages, dispatched one by one (`lookup_step`, `scan_step`,
+`rank_stage_step`), are what the pipelined front-end
+(`serving/async_server.py`) queues for each bucket. Every `ServeResult`
+carries the paper's cost model for one query (`query_cost`): the FeFET
+fabric's analytic latency and energy, not a measurement of this device.
+`hit_rate` is the YoutubeDNN HR@k evaluation in the paper's three
+accuracy configurations.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import cost_model as cm
 from repro_torch.core.lsh import lsh_signature
 from repro_torch.core.nns import (
     NNSResult,
     build_block_summary,
+    cosine_topk,
     fixed_radius_nns,
 )
 from repro_torch.core.quantization import (
@@ -55,7 +65,7 @@ class ServeResult(NamedTuple):
     items: torch.Tensor  # (B, top_k) final item ids, -1 padded
     topk: TopKResult  # per-candidate CTR top-k
     nns: NNSResult  # filtering-stage candidates
-    cost: None  # the paper's cost model is not ported yet
+    cost: cm.OpCost  # the paper's cost model for one query
     stats: CacheStats  # hot-cache hits/lookups for this batch
 
 
@@ -167,12 +177,21 @@ class RecSysEngine:
         ``history`` (-1 padded), a (B,) ``genre`` and optionally a (B,)
         bool ``valid`` mask (padding rows read zero rows and count no
         cache lookups). Returns the (B, top_k) final ids, the CTR top-k,
-        the NNS candidates and this batch's CacheStats.
+        the NNS candidates, the paper's cost model for one query
+        (`query_cost`) and this batch's CacheStats.
         """
         items, top, nns, stats = serve_step(
             self, self.batch_to_device(batch), CacheStats.zero(self.device))
-        return ServeResult(items=items, topk=top, nns=nns, cost=None,
-                           stats=stats)
+        return ServeResult(items=items, topk=top, nns=nns,
+                           cost=self.query_cost(), stats=stats)
+
+    def query_cost(self) -> cm.OpCost:
+        """The iMARS fabric's latency and energy for one query, from the
+        paper's analytic model (`cm.end_to_end_movielens`) at this engine's
+        candidate count; not a measurement of this device."""
+        e2e = cm.end_to_end_movielens(n_candidates=self.n_candidates)
+        return cm.OpCost(latency_ns=e2e["imars_latency_us"] * 1e3,
+                         energy_pj=e2e["imars_energy_uj"] * 1e6)
 
 
 # ---------------------------------------------------------------------------
@@ -328,3 +347,66 @@ def _rank_stage(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
     picked = torch.gather(cand, 1, top.indices.clamp(min=0).long())
     final = torch.where(top.indices >= 0, picked, -1)
     return final, top, stats + st
+
+
+# the pipeline split at its stage boundaries, for pipelined serving
+# (serving/async_server.py): lookup -> scan -> rank compose to exactly
+# serve_step, each dispatched on its own so a driver can queue a bucket's
+# three stages and stage the next bucket on the host meanwhile
+lookup_step = _lookup_stage
+scan_step = _scan_stage
+rank_stage_step = _rank_stage
+
+
+def n_summary_blocks(engine: RecSysEngine) -> int:
+    """Total block-summary blocks of the engine's catalog (0 when no
+    summary is attached — dense plans can't prune). The denominator for
+    the ``scan_frac`` telemetry: blocks touched / summary blocks."""
+    summary = engine.block_summary
+    return 0 if summary is None else int(summary.n_blocks)
+
+
+def hit_rate(engine: RecSysEngine, data, batch_size: int = 256,
+             k: int = 10, mode: str = "lsh", max_users: int | None = None
+             ) -> float:
+    """YoutubeDNN leave-one-out HR@k over the test labels.
+
+    mode: "fp32" (cosine, fp32 tables), "int8" (cosine over dequantized
+    int8), "lsh" (the iMARS fixed-radius Hamming path) — the three accuracy
+    configurations of paper Sec. IV-B.
+
+    Users are chunked into fixed `batch_size` batches (the last chunk
+    padded with its last user, its extra rows dropped), as the reference
+    does, and each chunk goes through one `_hr_step`.
+    """
+    n = data.n_users if max_users is None else min(max_users, data.n_users)
+    hits = 0
+    for lo in range(0, n, batch_size):
+        hi = min(lo + batch_size, n)
+        idx = np.arange(lo, hi)
+        pad_idx = np.concatenate(
+            [idx, np.full(batch_size - idx.size, idx[-1], idx.dtype)])
+        batch = engine.batch_to_device({
+            **{k2: v[pad_idx] for k2, v in data.user_feats.items()},
+            "history": data.histories[pad_idx],
+            "genre": data.genres[pad_idx]})
+        got = _hr_step(engine, batch, mode, k).cpu().numpy()[: idx.size]
+        labels = data.test_labels[idx]
+        hits += int((got == labels[:, None]).any(axis=1).sum())
+    return hits / n
+
+
+def _hr_step(engine: RecSysEngine, batch: dict, mode: str, k: int):
+    """Top-k retrieved item ids (B, k) for one padded batch."""
+    if mode == "fp32":
+        u = rs.user_tower(engine.params, engine.cfg, batch)
+        _, top = cosine_topk(u, engine.params["item_table"], k)
+        return top
+    if mode == "int8":
+        u, _, _ = _features(engine, batch)
+        _, top = cosine_topk(u, dequantize_rowwise(engine.item_table_q), k)
+        return top
+    if mode != "lsh":
+        raise ValueError(f"hit_rate: mode {mode!r} (fp32, int8 or lsh)")
+    nns, _ = filter_step(engine, batch)
+    return nns.indices[:, :k]

@@ -9,7 +9,9 @@ where only PyTorch is installed; from the repository root:
 (`--noconftest` because `tests/conftest.py` imports JAX.) The plain
 versions are themselves held against the JAX reference on the CPU by
 `tests/test_torch_kernels.py`, `tests/test_torch_core.py` and
-`tests/test_torch_engine.py`. Integer outputs must be equal; the pool's
+`tests/test_torch_engine.py`. The serving front-ends must serve the same
+bits in every mode on the card, and the pipelined ring must queue a
+bucket without a host sync. Integer outputs must be equal; the pool's
 floats are held to 1e-6 of the pooled magnitudes, as there. The flash
 kernel is held to 2e-5 in float32 and 2e-2 in bfloat16 (the Pallas
 kernel's tolerances in `tests/test_kernels.py`; both sides accumulate in
@@ -17,6 +19,7 @@ float32 in another order), the int8 matmul bit for bit.
 """
 import contextlib
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -28,7 +31,9 @@ from repro_torch.core.nns import (
     fixed_radius_nns,
 )
 from repro_torch.kernels import build, ops, ref
+from repro_torch.data import synthetic
 from repro_torch.models.recsys import default_youtubednn_config
+from repro_torch.serving import make_server
 from repro_torch.serving import recsys_engine as trs
 
 pytestmark = pytest.mark.cuda
@@ -403,6 +408,147 @@ def test_engine_on_the_card_serves_like_the_cpu_engine(cuda, scan_block):
     assert torch.equal(got.items, plain.items)
     assert torch.equal(got.nns.indices, plain.nns.indices)
     assert got.stats.as_dict() == cpu.serve(batch).stats.as_dict()
+
+
+# ---------------------------------------------------------------------------
+# the serving front-ends on the card
+# ---------------------------------------------------------------------------
+SERVE_BATCH = 64
+
+
+def _serving_setup(device, scan_block):
+    """A 2000-item engine on `device` (dense plan for scan_block None, the
+    pruned streaming plan for 128) and 150 single-user queries: two full
+    64-query buckets and a 22-query tail."""
+    cfg = default_youtubednn_config()._replace(n_items=2000)
+    rng = np.random.default_rng(1)
+    params = _numpy_params(cfg, rng)
+    proj = torch.from_numpy(rng.standard_normal((32, 256))
+                            .astype(np.float32))
+    eng = trs.RecSysEngine.build(params, cfg, lsh_proj=proj, hot_rows=64,
+                                 scan_block=scan_block, device=device)
+    data = synthetic.make_movielens(n_users=300, n_items=cfg.n_items)
+    return eng, synthetic.serving_queries(data, np.arange(150))
+
+
+def _served_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.status == "ok"
+        np.testing.assert_array_equal(g.items, w.items)
+        np.testing.assert_array_equal(g.scores, w.scores)
+
+
+def _served_close(got, want):
+    """Served in buckets of another row count: cuBLAS picks its GEMM (and
+    its split of the sum) by shape, so CTRs may differ in the last bits;
+    within 1e-6, and ids equal wherever the CTR gaps exceed 2e-6."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.status == "ok"
+        np.testing.assert_allclose(g.scores, w.scores, rtol=1e-6, atol=1e-7)
+        s = np.where(np.isfinite(w.scores), w.scores, -1.0)
+        k = int(np.cumprod(s[:-1] - s[1:] > 2e-6).sum())
+        np.testing.assert_array_equal(g.items[:k], w.items[:k])
+
+
+@pytest.mark.parametrize("scan_block", [None, 128])
+def test_pipelined_dispatch_never_waits_on_the_host(cuda, scan_block):
+    """Staging, the three stages and the queued device-to-host copies of a
+    bucket run under `set_sync_debug_mode("error")`: no hidden host sync
+    on the dispatch path; only retiring a bucket waits."""
+    eng, queries = _serving_setup(cuda, scan_block)
+    want = make_server(eng, "sync", max_batch=SERVE_BATCH).serve_many(
+        queries)
+    server = make_server(eng, "pipelined", max_batch=SERVE_BATCH, depth=2)
+    server.serve_many(queries[:SERVE_BATCH])  # warm-up: cuBLAS, allocators
+    dispatch, n = server._dispatch, []
+
+    def checked(parts):
+        n.append(len(parts))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(parts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    server._dispatch = checked
+    _served_equal(server.serve_many(queries), want)
+    assert len(n) == 3
+    assert server.stats()["n_errors"] == 0
+    # the mode does see the sync the staging avoids: a pageable copy
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(np.arange(16, dtype=np.int32)).to(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("scan_block", [None, 128])
+def test_server_modes_bit_equal_on_the_card(cuda, scan_block):
+    """Sync, pipelined and concurrent serving (its queue staged before the
+    drain starts, so its buckets are sync's) give the same items, scores
+    and cache counters; coalesced serving (two 64-query buckets as one
+    128-row batch) the same ids and CTRs within 1e-6 (`_served_close`).
+    Each dispatch launches the pool twice and the scan's kernel once."""
+    eng, queries = _serving_setup(cuda, scan_block)
+    scan = "hamming_distances" if scan_block is None else "streaming_nns"
+    stats = {}
+    results = {}
+    # mode, knobs, dispatches for 150 queries: 64, 64 and a 22-query tail
+    for mode, knobs, dispatches in (
+            ("sync", {}, 3), ("pipelined", {"depth": 2}, 3),
+            ("pipelined", {"depth": 3, "coalesce": 2}, 2),
+            ("concurrent", {"tenants": 2, "depth": 2, "autostart": False},
+             3)):
+        server = make_server(eng, mode, max_batch=SERVE_BATCH, **knobs)
+        build.reset_launches()
+        results[mode, str(knobs)] = server.serve_many(queries)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        st = server.stats()
+        server.close()
+        assert st["n_errors"] == 0 and st["last_error"] is None
+        assert st["n_served"] == len(queries) and st["n_batches"] == 3
+        stats[mode, str(knobs)] = {k: st[k] for k in (
+            "n_served", "cache_hits", "cache_lookups")}
+        assert launches["embedding_pool"] == 2 * dispatches, launches
+        assert launches[scan] == dispatches, launches
+    want = results["sync", "{}"]
+    for key, got in results.items():
+        if "coalesce" in key[1]:
+            _served_close(got, want)
+        else:
+            _served_equal(got, want)
+        assert stats[key] == stats["sync", "{}"], key
+    assert stats["sync", "{}"]["cache_hits"] > 0
+
+
+def test_drain_thread_serves_on_the_engines_device(cuda):
+    eng, queries = _serving_setup(cuda, None)
+    want = make_server(eng, "sync", max_batch=SERVE_BATCH).serve_many(
+        queries)
+    server = make_server(eng, "concurrent", max_batch=SERVE_BATCH,
+                         tenants=2, autostart=False)
+    dispatch, seen = server._inner._dispatch, []
+
+    def recorded(parts):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device()))
+        return dispatch(parts)
+
+    server._inner._dispatch = recorded
+    tickets = [server.submit(q) for q in queries]
+    server.start()
+    server.flush()
+    got = [server.result(t, timeout=60) for t in tickets]
+    server.close()
+    assert seen and set(seen) == {("serving-drain", eng.device.index or 0)}
+    assert server.stats()["n_errors"] == 0
+    for g, w in zip(got, want):
+        assert g.status == "ok"
+        np.testing.assert_array_equal(g.scores, w.scores)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ Checked: cache counters equal; user embeddings within 1e-6 relative (the
 same float32 ops, summed in another order); given the reference's query
 signatures, NNS candidates, distances, counts and `blocks_touched` equal
 bit for bit; CTRs within 1e-6; final ids equal wherever the CTR gaps that
-decide them exceed that tolerance.
+decide them exceed that tolerance; `ServeResult.cost` (the paper's cost
+model) equal.
 """
 import dataclasses
 
@@ -113,7 +114,8 @@ def test_serve_step_matches_reference(built, plan):
     got = teng.serve(batch)
     assert got.stats.as_dict() == want.stats.as_dict()
     assert got.stats.as_dict()["hits"] > 0  # the caches really served rows
-    assert got.cost is None
+    # the paper's cost model for one query, equal to the reference's
+    assert dataclasses.asdict(got.cost) == dataclasses.asdict(want.cost)
 
     u_want = np.asarray(jax.jit(jax_features)(jeng, jb)[0])
     u_got = teng.user_embedding(batch)

@@ -452,7 +452,13 @@ def test_import_builds_nothing_and_needs_no_jax():
             "repro_torch.serving.engine, repro_torch.serving.kv_cache, "
             "repro_torch.launch.serve, repro_torch.configs.registry, "
             "repro_torch.configs.qwen3_8b, repro_torch.configs.qwen2_5_3b, "
-            "repro_torch.configs.chatglm3_6b\n"
+            "repro_torch.configs.chatglm3_6b, repro_torch.serving, "
+            "repro_torch.serving.batcher, repro_torch.serving.async_server, "
+            "repro_torch.serving.frontend, repro_torch.serving.server, "
+            "repro_torch.serving.load_gen, repro_torch.obs, "
+            "repro_torch.obs.registry, repro_torch.obs.tracing, "
+            "repro_torch.core.cost_model, repro_torch.core.mapping, "
+            "repro_torch.data.synthetic\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro', 'triton')]\n"
             "assert not bad, bad\n")
