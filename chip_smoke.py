@@ -53,12 +53,35 @@
    `ServeResult.cost` equals the paper's cost model, and `hit_rate` in
    fp32, int8 and lsh modes on the synthetic MovieLens set gives the same
    hit counts with the plain versions.
-6. Phase C: each kernel against its plain version on the card at the
+6. Phase F: the live and tiered catalogs. F.1: a seeded churn through
+   `LiveCatalog` over phase A's engine (64 new ids past n, 16 hot-cached
+   and 48 cold rows re-embedded, deletes, a delete and re-add, a retired
+   new id in every history, 1000 new ids that fill the 1024-slot delta
+   and force a compaction); after each update batch two 256-query batches
+   serve bit-equal to `rebuild_reference()` on the card (items, scores,
+   NNS, cache counters), 2 pool and 2 Hamming launches a batch (base and
+   delta), no streaming launch; the same churn through sync and pipelined
+   servers attached to one catalog serves equal bits. F.2: phase B's
+   1,048,576 items, 1% tombstoned and 1024 rows re-embedded: bit-equal to
+   `rebuild_reference()` (blocks touched included), 1 masked-pruned
+   streaming, 1 Hamming and 2 pool launches a batch; then the compaction,
+   timed. F.3: F.2's compacted catalog spilled to a base shard in a
+   temporary directory (removed at the end) and served by `TieredCatalog`
+   (pool 4096 rows, 128 hot): bit-equal to `to_ram_engine()`, 4 streaming
+   launches a batch (chunks of 2^18 rows), 1 Hamming and 2 pool; churn,
+   compaction and a check against `rebuild_reference()`; snapshot and
+   restore serving the same bits. Times: serve ms a batch, frozen and
+   live on the same batches; tiered ms a batch, its out-of-core scan and
+   its host overlays; bytes staged; resident bytes; compactions.
+7. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
-   rank-stage segment lists (one launch each; device and wall time a call)
-   and as the single-table public op; the streaming kernel also masked,
+   rank-stage segment lists (one launch each; device and wall time a call),
+   at F.1's live engine's (the 1024-slot delta as the history's and the
+   candidates' side table, its bytes in the bound), at the tiered rank
+   stage (a per-call 12,800-slot overlay, no base rows), and as the
+   single-table public op; the streaming kernel also masked,
    unpruned, with a `superblock` override and against the dense plan;
    flash also in float32 with a ragged kv length and `q_offset`. Integer
    outputs, the pool (counters included) and the int8 matmul must be
@@ -78,8 +101,8 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, D, C in that order. Prints one line per phase (phase E's
-with the card's name and power limit), one line per kernel, the card's
+Runs A, B, E, F, D, C in that order. Prints one line per phase (phase E's
+and F's with the card's name and power limit), one line per kernel, the card's
 name and power limit as `nvidia-smi` gives them, a `kernels` JSON line,
 and last `{"ok": true, "device": {...}}`; `--record PATH` also writes
 the full record as JSON. Any failure exits nonzero. Without a
@@ -755,6 +778,365 @@ def serving_phase(eng_a, eng_b, inputs, seed: int, ops, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase F: the live catalog and the tiered out-of-core catalog
+# ---------------------------------------------------------------------------
+def same_serve(got, want, what: str) -> None:
+    """Two ServeResults equal bit for bit: items, scores, the NNS
+    (blocks touched included) and the cache counters."""
+    for f in ("indices", "distances", "counts", "blocks_touched"):
+        a, b = getattr(got.nns, f), getattr(want.nns, f)
+        check((a is None and b is None) or (
+            a is not None and b is not None and torch.equal(a, b)),
+            f"{what}: NNS {f} differ")
+    check(torch.equal(got.items, want.items), f"{what}: items differ")
+    check(torch.equal(got.topk.scores, want.topk.scores),
+          f"{what}: scores differ")
+    check(got.stats.as_dict() == want.stats.as_dict(),
+          f"{what}: cache counters {got.stats.as_dict()} != "
+          f"{want.stats.as_dict()}")
+
+
+def counted_serves(serve, batches, ops):
+    """`serve` over `batches`, the kernels' launches counted over exactly
+    that loop -> (results, launches, wall ms a batch)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = [serve(b) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return results, ops.launch_counts(), wall / len(batches) * 1e3
+
+
+def check_launches(launches: dict, want: dict, n: int, what: str) -> None:
+    for name, per in want.items():
+        check(launches[name] == per * n,
+              f"{what}: launches {launches} for {n} batches (want {per} "
+              f"{name} a batch)")
+
+
+def serve_ms(engine, batches, reps: int = 5) -> float:
+    """Wall ms a batch of `engine.serve` over `batches`, warmed."""
+    for b in batches:
+        engine.serve(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for b in batches:
+            engine.serve(b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (reps * len(batches)) * 1e3
+
+
+def churn_rounds(rng, n: int, d: int, hot: np.ndarray) -> list:
+    """F.1's seeded update batches: (name, [update kwargs, ...], retired
+    new id to put in the histories or None)."""
+    def rows(m):
+        return (0.05 * rng.standard_normal((m, d))).astype(np.float32)
+
+    new = np.arange(n, n + 64)
+    cold = np.setdiff1d(np.arange(n), hot)
+    re = np.r_[hot[:16], rng.choice(cold, 48, replace=False)]
+    dels = np.r_[rng.choice(np.setdiff1d(cold, re), 40, replace=False),
+                 new[:8]]
+    back = int(re[-1])
+    fill = np.arange(n + 64, n + 64 + 1000)
+    return [
+        ("upsert of 64 new ids past n",
+         [dict(upsert_ids=new, upsert_rows=rows(64))], None),
+        ("re-embed of 16 hot-cached and 48 cold rows",
+         [dict(upsert_ids=re, upsert_rows=rows(len(re)))], None),
+        ("delete of 40 base and 8 new ids",
+         [dict(delete_ids=dels)], int(new[0])),
+        ("delete and re-add of one id",
+         [dict(delete_ids=[back]), dict(upsert_ids=[back],
+                                        upsert_rows=rows(1))], int(new[0])),
+        ("1000 new ids: the delta fills, a compaction is forced",
+         [dict(upsert_ids=fill, upsert_rows=rows(len(fill)))], int(new[1])),
+    ]
+
+
+def with_retired(batches, gid):
+    """The batches with a retired new id as every history's first item."""
+    if gid is None:
+        return batches
+    out = []
+    for b in batches:
+        b = dict(b)
+        b["history"] = b["history"].copy()
+        b["history"][:, 0] = gid
+        out.append(b)
+    return out
+
+
+def live_dense_phase(eng_a, batches, seed: int, ops) -> dict:
+    """F.1: the churn through `LiveCatalog` at phase A's 3,000 items, each
+    update batch's serving bit-equal to `rebuild_reference()` on the card;
+    then the same churn through sync and pipelined front-ends attached to
+    one catalog (equal results)."""
+    from repro_torch.serving import LiveCatalog, make_server
+
+    rng = np.random.default_rng(seed + 6)
+    n, d = eng_a.item_table_q.values.shape
+    rounds = churn_rounds(rng, n, d, eng_a.item_hot.hot_ids.cpu().numpy())
+    cat = LiveCatalog(eng_a, delta_capacity=1024)
+    out = {"rounds": [], "launches": None}
+    total = None
+    for name, updates, retired in rounds:
+        epoch = cat.epoch
+        for u in updates:
+            cat.apply_updates(**u)
+        bs = with_retired(batches, retired)
+        live, lc, _ = counted_serves(cat.engine.serve, bs, ops)
+        check_launches(lc, {"embedding_pool": 2, "hamming_distances": 2,
+                            "streaming_nns": 0}, len(bs), f"F.1 {name}")
+        total = lc if total is None else {k: total[k] + lc[k] for k in lc}
+        ref = cat.rebuild_reference()
+        for i, (g, b) in enumerate(zip(live, bs)):
+            same_serve(g, ref.serve(b), f"F.1 {name}, batch {i}")
+        out["rounds"].append({"update": name, "epoch": cat.epoch,
+                              "pending": cat.n_pending,
+                              "n_items": cat.n_items,
+                              "cache": live[0].stats.as_dict()})
+        if name.startswith("1000"):
+            check(cat.epoch == epoch + 1 and cat.n_pending == 1000,
+                  f"F.1: the full delta forced no compaction (epoch "
+                  f"{cat.epoch}, pending {cat.n_pending})")
+    out["launches"] = total
+    out["n_batches"] = len(rounds) * len(batches)
+    out["n_items_base"] = n
+    out["forced_compact_s"] = cat.last_compact_s
+    out["pending"] = cat.n_pending
+    out["frozen_ms"] = serve_ms(eng_a, batches)
+    out["live_ms"] = serve_ms(cat.engine, batches)
+
+    # the same churn through sync and pipelined servers on one catalog
+    rng = np.random.default_rng(seed + 6)
+    rounds = churn_rounds(rng, n, d, eng_a.item_hot.hot_ids.cpu().numpy())
+    cat2 = LiveCatalog(eng_a, delta_capacity=1024)
+    servers = {m: make_server(cat2.engine, m, max_batch=BATCH, **k)
+               for m, k in (("sync", {}), ("pipelined", {"depth": 2}))}
+    for server in servers.values():
+        cat2.attach(server)
+    pipe_launches = None
+    for name, updates, retired in rounds:
+        for u in updates:
+            cat2.apply_updates(**u)
+        queries = [q for b in with_retired(batches, retired)
+                   for q in split_queries(b)]
+        got = {}
+        for mode, server in servers.items():
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            got[mode] = server.serve_many(queries)
+            torch.cuda.synchronize()
+            lc = ops.launch_counts()
+            check_launches(lc, {"embedding_pool": 2, "hamming_distances": 2,
+                                "streaming_nns": 0}, len(batches),
+                           f"F.1 {mode} server, {name}")
+            if mode == "pipelined":
+                pipe_launches = lc if pipe_launches is None else {
+                    k: pipe_launches[k] + lc[k] for k in lc}
+        for a, b in zip(got["pipelined"], got["sync"]):
+            check(a.status == b.status == "ok"
+                  and np.array_equal(a.items, b.items)
+                  and np.array_equal(a.scores, b.scores),
+                  f"F.1 pipelined differs from sync after {name}")
+    st = {m: s.stats() for m, s in servers.items()}
+    for server in servers.values():
+        server.close()
+    for key in ("cache_hits", "cache_lookups", "n_served"):
+        check(st["pipelined"][key] == st["sync"][key],
+              f"F.1 pipelined {key} differs from sync")
+    check(st["sync"]["n_errors"] == 0 and st["pipelined"]["n_errors"] == 0,
+          "F.1 servers reported errors")
+    out["pipelined_launches"] = pipe_launches
+    out["engine"] = cat.engine
+    return out
+
+
+def live_stream_phase(eng_b, batches, seed: int, ops) -> dict:
+    """F.2: 1% of phase B's 1,048,576 rows tombstoned and 1,024 rows
+    re-embedded; serving bit-equal to `rebuild_reference()` (blocks touched
+    included), one masked-pruned streaming launch a batch; then the
+    compaction, timed."""
+    from repro_torch.serving import LiveCatalog
+
+    rng = np.random.default_rng(seed + 7)
+    n, d = eng_b.item_table_q.values.shape
+    hot = eng_b.item_hot.hot_ids.cpu().numpy()
+    dels = rng.choice(n, n // 100, replace=False)
+    cand = np.setdiff1d(np.arange(n), np.r_[dels, hot])
+    ups = np.r_[hot[:16], rng.choice(cand, 1024 - 16, replace=False)]
+    cat = LiveCatalog(eng_b, delta_capacity=1024)
+    t0 = time.perf_counter()
+    cat.delete(dels)
+    cat.upsert(ups, (0.05 * rng.standard_normal((len(ups), d))
+                     ).astype(np.float32))
+    update_s = time.perf_counter() - t0
+    live, lc, _ = counted_serves(cat.engine.serve, batches, ops)
+    check_launches(lc, {"embedding_pool": 2, "hamming_distances": 1,
+                        "streaming_nns": 1}, len(batches), "F.2")
+    ref = cat.rebuild_reference()
+    for i, (g, b) in enumerate(zip(live, batches)):
+        same_serve(g, ref.serve(b), f"F.2 batch {i}")
+    del ref
+    out = {"launches": lc, "update_s": update_s, "pending": cat.n_pending,
+           "n_items": cat.n_items,
+           "blocks_touched_mean": float(
+               live[0].nns.blocks_touched.float().mean()),
+           "frozen_ms": serve_ms(eng_b, batches),
+           "live_ms": serve_ms(cat.engine, batches)}
+    out["compact_s"] = cat.compact()
+    out["engine"] = cat.engine
+    return out
+
+
+def tiered_phase(eng, batches, freqs, seed: int, ops) -> dict:
+    """F.3: F.2's compacted catalog spilled to a base shard in a temporary
+    directory (removed at the end) and served through `TieredCatalog`:
+    bit-equal to `to_ram_engine().serve`, 4 streaming launches a batch
+    (out of core, chunks of 2^18 rows), 1 Hamming and 2 pool launches;
+    churn, compaction and a check against `rebuild_reference()`; snapshot
+    and restore serving the same bits."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.lsh import lsh_signature
+    from repro_torch.core.nns import out_of_core_nns
+    from repro_torch.serving import TieredCatalog
+
+    rng = np.random.default_rng(seed + 8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiered_")
+    try:
+        t0 = time.perf_counter()
+        tier = TieredCatalog.from_engine(eng, os.path.join(tmp, "shard"),
+                                         pool_rows=4096,
+                                         item_freqs=np.array(freqs, np.int64))
+        open_s = time.perf_counter() - t0
+        ram = tier.to_ram_engine()
+        tier.serve(batches[0])  # warm-up: pinned buffers, page cache
+        staged = []
+
+        def serve(b):
+            r = tier.serve(b)
+            staged.append(tier.last_staged_bytes)
+            return r
+
+        got, lc, ms = counted_serves(serve, batches, ops)
+        check_launches(lc, {"embedding_pool": 2, "hamming_distances": 1,
+                            "streaming_nns": 4}, len(batches), "F.3")
+        for i, (g, b) in enumerate(zip(got, batches)):
+            same_serve(g, ram.serve(b), f"F.3 batch {i} vs to_ram_engine")
+        # the out-of-core scan alone, on the first batch's query signatures
+        q = lsh_signature(ram.user_embedding(batches[0]), ram.lsh_proj)
+
+        def scan():
+            return out_of_core_nns(q, tier.base.sigs, ram.radius,
+                                   ram.n_candidates, db_mask=tier.alive,
+                                   summary=tier.summary)
+
+        scan()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            scan()
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) / 3 * 1e3
+        # the host's byte overlays of the first batch (history, then the
+        # candidates), staged on the card
+        cand = got[0].nns.indices.cpu().numpy()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tier._build_overlay(batches[0]["history"])
+            tier._build_overlay(cand)
+        torch.cuda.synchronize()
+        overlay_ms = (time.perf_counter() - t0) / 3 * 1e3
+        out = {"launches": lc, "ms_per_batch": ms, "scan_ms": scan_ms,
+               "overlay_ms": overlay_ms,
+               "open_s": open_s, "staged_bytes": staged[-1],
+               "resident_bytes": tier.resident_bytes(),
+               "stats": tier.stats()}
+        del ram
+
+        # churn: pool and hot rows re-embedded, rows deleted
+        n, d = tier.base.n, tier.base.d
+        ups = np.r_[tier.pool_ids[:32], rng.choice(n, 96, replace=False)]
+        ups = np.unique(ups)
+        tier.upsert(ups, (0.05 * rng.standard_normal((len(ups), d))
+                          ).astype(np.float32))
+        tier.delete(rng.choice(np.setdiff1d(np.arange(n), ups), 64,
+                               replace=False))
+        ram = tier.to_ram_engine()
+        same_serve(tier.serve(batches[0]), ram.serve(batches[0]),
+                   "F.3 after churn vs to_ram_engine")
+        del ram
+        t0 = time.perf_counter()
+        tier.compact()
+        out["compact_s"] = time.perf_counter() - t0
+        ref = tier.rebuild_reference()
+        same_serve(tier.serve(batches[1]), ref.serve(batches[1]),
+                   "F.3 after compaction vs rebuild_reference")
+        del ref
+        # snapshot, a change, restore: the snapshot's bits again
+        tier.rebalance()
+        snap = os.path.join(tmp, "snapshot")
+        tier.snapshot(snap)
+        want = tier.serve(batches[0])
+        tier.delete(tier.pool_ids[:8])
+        tier.restore(snap)
+        same_serve(tier.serve(batches[0]), want, "F.3 after restore")
+        out["epoch"] = tier.epoch
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def catalog_phase(eng_a, eng_b, inputs, seed: int, ops, card: str) -> dict:
+    """Phase F: F.1 live dense, F.2 live streaming, F.3 tiered."""
+    t0 = time.perf_counter()
+    f1 = live_dense_phase(eng_a, inputs["A"]["batches"][:2], seed, ops)
+    f2 = live_stream_phase(eng_b, inputs["B"]["batches"][:2], seed, ops)
+    f3 = tiered_phase(f2.pop("engine"), inputs["B"]["batches"][:2],
+                      inputs["B"]["freqs"], seed, ops)
+    f = {"F1": f1, "F2": f2, "F3": f3, "seconds": time.perf_counter() - t0}
+    f["live_engine"] = f1.pop("engine")
+    f["launches"] = {k: f1["launches"][k] + f1["pipelined_launches"][k]
+                     + f2["launches"][k] + f3["launches"][k]
+                     for k in f1["launches"]}
+    print(f"phase F.1 (LiveCatalog on phase A's {f1['n_items_base']} "
+          f"items, dense; "
+          f"{card}): {len(f1['rounds'])} update rounds, each bit-equal to "
+          f"rebuild_reference() served on the card (items, scores, NNS, "
+          f"cache counters), a retired new id in the histories, the full "
+          f"delta forced a compaction ({f1['forced_compact_s']:.4f} s); "
+          f"pipelined == sync across the churn; launches a live batch "
+          f"{ {k: v // f1['n_batches'] for k, v in f1['launches'].items()} }; "
+          f"serve {f1['frozen_ms']:.3f} ms a batch frozen, "
+          f"{f1['live_ms']:.3f} ms live ({f1['pending']} pending rows)",
+          flush=True)
+    print(f"phase F.2 (LiveCatalog on phase B's "
+          f"{eng_b.item_table_q.values.shape[0]} items, pruned "
+          f"streaming; {card}): 1% tombstoned and 1024 rows re-embedded in "
+          f"{f2['update_s']:.3f} s, bit-equal to rebuild_reference() "
+          f"(blocks touched {f2['blocks_touched_mean']:.1f} a query), "
+          f"launches {f2['launches']} for 2 batches; serve "
+          f"{f2['frozen_ms']:.3f} ms a batch frozen, {f2['live_ms']:.3f} ms "
+          f"live; compaction {f2['compact_s']:.3f} s", flush=True)
+    print(f"phase F.3 (TieredCatalog over F.2's compacted catalog, pool "
+          f"4096 rows, 128 hot; {card}): bit-equal to to_ram_engine(), "
+          f"rebuild_reference() after churn and compaction, and after "
+          f"snapshot + restore; launches {f3['launches']} for 2 batches; "
+          f"{f3['ms_per_batch']:.3f} ms a batch, out-of-core scan "
+          f"{f3['scan_ms']:.3f} ms, host overlays {f3['overlay_ms']:.3f} "
+          f"ms, {f3['staged_bytes']} bytes staged a "
+          f"batch, resident {f3['resident_bytes']} B, shard write + open "
+          f"{f3['open_s']:.3f} s, compaction {f3['compact_s']:.3f} s; "
+          f"phase F took {f['seconds']:.1f} s", flush=True)
+    return f
+
+
+# ---------------------------------------------------------------------------
 # phase D: Qwen3-8B prefill and decode
 # ---------------------------------------------------------------------------
 def synced_ms(fn):
@@ -1070,40 +1452,74 @@ def hamming_entry(qa, db_a, db_max, ops, ref, launches: int) -> dict:
             "library_ms": None, "extra": shapes}
 
 
-def pool_stage_bytes_ops(plan, ids, valid) -> tuple[int, int]:
+def pool_stage_bytes_ops(plan, ids, valid, sides=None) -> tuple[int, int]:
     """The least a grouped pool must move and compute for these inputs:
     each distinct live row of a table (its clamped id) read once, d int8
     values and an f32 scale, however many slots name it; every id, the
     valid mask and the counted segments' hot ids read once; every output
     row and the counters written once; and (v * s) * w + acc per live slot
-    and column."""
+    and column. A segment's side table (its own, or this call's in
+    `sides`) is read once, D slots of d + 4 bytes and its D ids; slots it
+    serves, and slots past the table that it turns to zeros, read no row
+    of the table."""
     n_bytes = (0 if valid is None else valid.numel()) + 8 * plan.counted
     n_ops = 0
     live_rows: dict = {}  # table -> (d, its live row ids)
-    for seg, x in zip(plan.segments, ids):
+    side_tables: dict = {}  # side table -> its bytes
+    for i, (seg, x) in enumerate(zip(plan.segments, ids)):
         if valid is not None and seg.masked:
             x = torch.where(valid[:, None], x, -1)
         n, d = seg.values.shape
-        live = x[x >= 0].clamp(max=n - 1)
+        side = seg.side if sides is None or sides[i] is None else sides[i]
+        live = x[x >= 0]
+        n_ops += 3 * live.numel() * d
+        if side is not None and side.ids.numel():
+            D = side.ids.numel()
+            side_tables[side.ids.data_ptr()] = D * (d + 4) + 4 * D
+            live = live[~torch.isin(live, side.ids) & (live < n)]
+        else:
+            live = live.clamp(max=n - 1)
         prev = live_rows.get(seg.values.data_ptr(), (d, live[:0]))[1]
         live_rows[seg.values.data_ptr()] = (d, torch.cat([prev, live]))
         rows = x.numel() if seg.mode == "rows" else x.shape[0]
         hot = (seg.hot_ids.numel()
                if seg.counted and seg.hot_ids is not None else 0)
         n_bytes += 4 * x.numel() + 4 * rows * d + 4 * hot
-        n_ops += 3 * live.numel() * d
     for d, live in live_rows.values():
         n_bytes += int(torch.unique(live).numel()) * (d + 4)
-    return n_bytes, n_ops
+    return n_bytes + sum(side_tables.values()), n_ops
 
 
-def pool_entry(eng, batch, cand, ops, ref, launches: int) -> dict:
+def tiered_rank_stage(live_eng, cand, ops):
+    """The tiered catalog's rank stage at phase A's candidates: a candidate
+    segment with no base rows and a per-call overlay of one slot a
+    candidate (`TieredCatalog._build_overlay`'s layout), and the genre
+    bag -> (plan, sides)."""
+    from repro_torch.core.nns import EMPTY_ID
+
+    plan = live_eng.rank_plan
+    seg = plan.segments[0]
+    empty = seg._replace(values=seg.values[:0], scales=seg.scales[:0],
+                         side=None)
+    flat = cand.flatten()
+    ov_ids = torch.where(flat >= 0, flat, EMPTY_ID)
+    order = torch.sort(ov_ids, stable=True).indices
+    safe = flat.clamp(min=0).long()[order]
+    overlay = ops.SideTable(ids=ov_ids[order].contiguous(),
+                            values=seg.values[safe].contiguous(),
+                            scales=seg.scales[safe].contiguous())
+    return ops.PoolPlan([empty, plan.segments[1]]), [overlay, None]
+
+
+def pool_entry(eng, batch, cand, ops, ref, launches: int, live_eng) -> dict:
     """Phase C for the grouped pool kernel, at phase A's lookup and rank
     stages (one launch each, bit-equal to the plain version with equal
-    counters), and the single-table public op (genre, history,
-    weighted history; bit-equal). Informative: `F.embedding_bag` over the
-    dequantized f32 tables, the library's nearest call (the port never
-    calls it)."""
+    counters); the same stages of F.1's live engine, whose history and
+    candidate segments resolve through its 1,024-slot delta as their side
+    table, and the tiered rank stage (a per-call overlay, no base rows);
+    and the single-table public op (genre, history, weighted history;
+    bit-equal). Informative: `F.embedding_bag` over the dequantized f32
+    tables, the library's nearest call (the port never calls it)."""
     from repro_torch.core.quantization import dequantize_rowwise
 
     b = eng.batch_to_device(batch)
@@ -1111,39 +1527,49 @@ def pool_entry(eng, batch, cand, ops, ref, launches: int) -> dict:
     dev = cand.device
     B, N = cand.shape
     names = sorted(eng.cfg.user_features)
-    stages = {
-        "lookup": (eng.lookup_plan, [b[k][:, None] for k in names]
-                   + [b["history"]],
-                   lambda: [torch.empty((B, eng.lookup_plan.width),
-                                        device=dev)] * (len(names) + 1)),
-        "rank": (eng.rank_plan, [cand, b["genre"][:, None]],
-                 lambda: [torch.empty((B, N, eng.rank_plan.width),
-                                      device=dev),
-                          torch.empty((B, eng.genre_table_q.values.shape[1]),
-                                      device=dev)])}
+    tiered_plan, tiered_sides = tiered_rank_stage(live_eng, cand, ops)
+    stages = {}
+    for prefix, e in (("", eng), ("live_", live_eng)):
+        stages[prefix + "lookup"] = (
+            e.lookup_plan, [b[k][:, None] for k in names] + [b["history"]],
+            lambda e=e: [torch.empty((B, e.lookup_plan.width),
+                                     device=dev)] * (len(names) + 1), None)
+        stages[prefix + "rank"] = (
+            e.rank_plan, [cand, b["genre"][:, None]],
+            lambda e=e: [torch.empty((B, N, e.rank_plan.width), device=dev),
+                         torch.empty((B, e.genre_table_q.values.shape[1]),
+                                     device=dev)], None)
+    stages["tiered_rank"] = (tiered_plan, [cand, b["genre"][:, None]],
+                             stages["live_rank"][2], tiered_sides)
     out = {}
-    for name, (plan, ids, new_outs) in stages.items():
+    for name, (plan, ids, new_outs, sides) in stages.items():
         got, want = new_outs(), new_outs()
         for o in got + want:
             o.fill_(-7.0)
-        c_got = plan.launch(ids, got, valid)
-        c_want = ref.grouped_pool_ref(plan.segments, ids, want, valid)
+        c_got = plan.launch(ids, got, valid, sides=sides)
+        c_want = ref.grouped_pool_ref(plan.segments, ids, want, valid,
+                                      sides=sides)
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"grouped pool ({name} stage) != plain")
         check(torch.equal(c_got, c_want),
               f"grouped pool ({name} stage) counters != plain")
-        bnd, by = bound(*pool_stage_bytes_ops(plan, ids, valid))
+        bnd, by = bound(*pool_stage_bytes_ops(plan, ids, valid, sides))
         outs = new_outs()
+        side_of = [seg.side if sides is None or sides[i] is None
+                   else sides[i] for i, seg in enumerate(plan.segments)]
         out[name] = {
             "shape": ", ".join(
                 f"{seg.mode} {tuple(x.shape)} of {seg.values.shape[0]}x"
-                f"{seg.values.shape[1]}" for seg, x in zip(plan.segments,
-                                                          ids)),
-            "ms": timed_ms(lambda: plan.launch(ids, outs, valid), 200),
-            "call_ms": call_ms(lambda: ops.grouped_pool(plan, ids, outs,
-                                                        valid), 200),
+                f"{seg.values.shape[1]}"
+                + ("" if sd is None else
+                   f" + side table of {sd.ids.shape[0]}")
+                for seg, x, sd in zip(plan.segments, ids, side_of)),
+            "ms": timed_ms(lambda: plan.launch(ids, outs, valid,
+                                               sides=sides), 200),
+            "call_ms": call_ms(lambda: ops.grouped_pool(
+                plan, ids, outs, valid, sides=sides), 200),
             "plain_ms": timed_ms(lambda: ref.grouped_pool_ref(
-                plan.segments, ids, outs, valid), 20),
+                plan.segments, ids, outs, valid, sides=sides), 20),
             "bound_ms": bnd, "bound_by": by,
             "counters": [int(c) for c in c_got]}
 
@@ -1382,6 +1808,10 @@ def main(argv=None) -> int:
     # -- phase E: the serving front-ends over A's and B's engines ----------
     e = serving_phase(eng_a, eng_b, inputs, args.seed, ops, card)
 
+    # -- phase F: the live catalog (A's and B's engines) and the tiered one -
+    cat_f = catalog_phase(eng_a, eng_b, inputs, args.seed, ops, card)
+    torch.cuda.empty_cache()
+
     # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
     lm_rec, int8_operands = lm_phase(args.seed, device, ops)
     torch.cuda.empty_cache()
@@ -1422,14 +1852,16 @@ def main(argv=None) -> int:
         qa, eng_a.item_sigs, eng_b.item_sigs[:STREAM_MIN_ITEMS - 1], ops,
         ref, a["launches"]["hamming_distances"]
         + b["launches"]["hamming_distances"]
-        + e["launches"]["hamming_distances"]))
+        + e["launches"]["hamming_distances"]
+        + cat_f["launches"]["hamming_distances"]))
 
     # embedding pool: the lookup and rank stages' segment lists of phase A
     # (one grouped launch each), and the single-table public op
     kernels.append(pool_entry(
         eng_a, batches_a[0], a["results"][0].nns.indices, ops, ref,
         a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]
-        + e["launches"]["embedding_pool"]))
+        + e["launches"]["embedding_pool"]
+        + cat_f["launches"]["embedding_pool"], cat_f.pop("live_engine")))
 
     # streaming NNS at phase B's shapes: 256 queries x 1,048,576 items
     qb = lsh_signature(eng_b.user_embedding(batches_b[0]), eng_b.lsh_proj)
@@ -1486,7 +1918,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/streaming_nns.cu",
         "replaces": "src/repro/kernels/streaming_nns.py:346",
         "launches": a["launches"]["streaming_nns"]
-        + b["launches"]["streaming_nns"] + e["launches"]["streaming_nns"],
+        + b["launches"]["streaming_nns"] + e["launches"]["streaming_nns"]
+        + cat_f["launches"]["streaming_nns"],
         "max_abs_err": 0.0,
         "ms": timed_ms(lambda: ops.streaming_nns_cuda(
             qb, db_b, **kw, **variants["pruned"]), 20),
@@ -1530,6 +1963,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_e=e,
+                  phase_f=cat_f,
                   kernels=kernels,
                   device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the iMARS reproduction, for NVIDIA Hopper (sm_90a).
 
-A second package beside the JAX reference (`repro`). It serves the frozen
+A second package beside the JAX reference (`repro`). It serves the
 YoutubeDNN engine end to end (`serving.recsys_engine.RecSysEngine.build`
--> `serve` / `filter_stage` / `rank_stage`) and the dense LM family
+-> `serve` / `filter_stage` / `rank_stage`), frozen or over a live
+catalog (`serving.catalog.LiveCatalog`) or a tiered out-of-core one
+(`serving.tiered.TieredCatalog`), and the dense LM family
 (`serving.engine`: `prefill`, `decode_step`, `LMServingEngine.generate`;
 `launch.serve` is its CLI). Every TPU kernel of the reference has a CUDA
 C++ counterpart under `kernels/csrc` — dense Hamming distances, the

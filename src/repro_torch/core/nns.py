@@ -1,4 +1,4 @@
-"""Fixed-radius Hamming NNS — the filtering-stage retrieval (frozen part).
+"""Fixed-radius Hamming NNS — the filtering-stage retrieval.
 
 Mirrors `repro/core/nns.py`: `fixed_radius_nns` with its two plans behind
 one `scan_block` knob (None routes by DB size at `STREAM_MIN_ITEMS`, 0
@@ -6,6 +6,14 @@ forces dense, > 0 forces streaming), and the block summaries that let the
 streaming plan skip blocks whose sound Hamming lower bound exceeds the
 radius. Both plans, pruned or not, return the same bits: candidates sorted
 by (distance, row), padded (-1, BIG_DIST), and the count of all matches.
+
+The live catalog's scan (`delta_aware_nns`): the read-only base scans
+through its plan with tombstoned rows masked (`db_mask`), the bounded
+delta shard scans dense (`delta_scan`, global ids), and the two candidate
+buffers merge into the exact (distance, id) order of a rebuilt table
+(`merge_delta_candidates`). `out_of_core_nns` scans a host-resident
+(memmapped) signature DB a chunk of admitted summary blocks at a time; a
+memmap passed to `fixed_radius_nns` routes there.
 
 Signatures are int32 tensors holding the uint32 bits. The summary is built
 on the host with numpy (uint32 views), as in the reference.
@@ -20,7 +28,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import popcount32
-from repro_torch.kernels.streaming_nns import BIG_DIST
+from repro_torch.kernels.streaming_nns import (
+    BIG_DIST,
+    merge_candidate_buffers,
+)
 from repro_torch.utils import cdiv, to_device
 
 # dense materializes q*n int32 — at and above this DB size the O(q*K)
@@ -32,6 +43,11 @@ DEFAULT_SCAN_BLOCK = 4096
 SUMMARY_BLOCK_ROWS = 4096
 # summary blocks per vectorized host sweep (bounds temporary memory)
 _BUILD_CHUNK_BLOCKS = 64
+# rows a chunk of the out-of-core scan: 8 MB of 256-bit signatures
+OUTOFCORE_CHUNK_ROWS = 1 << 18
+# the empty delta slot's id: sorts after every real item id, so a delta
+# shard kept sorted by id has its live slots in an ascending prefix
+EMPTY_ID = 2**31 - 1
 
 
 class NNSResult(NamedTuple):
@@ -144,6 +160,45 @@ def build_block_summary(db_sigs, block_rows: int = SUMMARY_BLOCK_ROWS, *,
         block_rows=block_rows)
 
 
+def update_block_summary(summary: BlockSummary, db_sigs, db_mask,
+                         touched_rows) -> BlockSummary:
+    """Recompute, exactly, every block of `summary` holding a row of
+    `touched_rows` against `db_sigs` / `db_mask` (host-side, O(touched
+    blocks)). Tombstoning must tighten a block's bound, and an incremental
+    OR / AND cannot unset bits, so touched blocks are rebuilt; the result
+    equals `build_block_summary` over the same (db_sigs, db_mask). New
+    tensors on the summary's device."""
+    rows = np.unique(np.asarray(touched_rows, np.int64).reshape(-1))
+    sigs = _host_u32(db_sigs)
+    n, words = sigs.shape
+    br = summary.block_rows
+    rows = rows[(rows >= 0) & (rows < n)]
+    if rows.size == 0:
+        return summary
+    if db_mask is None:
+        elig = np.ones(n, bool)
+    else:
+        elig = (db_mask.cpu().numpy() if isinstance(db_mask, torch.Tensor)
+                else np.asarray(db_mask)).astype(bool)[:n]
+    blocks = np.unique(rows // br)
+    blocks = blocks[blocks < summary.n_blocks]
+    arrays = [_host_u32(summary.or_sigs).copy(),
+              _host_u32(summary.and_sigs).copy(),
+              summary.min_pc.cpu().numpy().copy(),
+              summary.max_pc.cpu().numpy().copy(),
+              summary.n_alive.cpu().numpy().copy()]
+    for b in blocks:
+        lo, hi = int(b) * br, min(int(b) * br + br, n)
+        s = np.zeros((br, words), np.uint32)
+        e = np.zeros((br,), bool)
+        s[: hi - lo] = sigs[lo:hi]
+        e[: hi - lo] = elig[lo:hi]
+        for a, v in zip(arrays, _summarize_blocks(s[None], e[None])):
+            a[b] = v[0]
+    return BlockSummary(*to_device(arrays, summary.or_sigs.device),
+                        block_rows=br)
+
+
 def summary_block_bounds(query_sigs: torch.Tensor,
                          summary: BlockSummary) -> torch.Tensor:
     """(q, words) queries x summary -> (q, n_blocks) int32 lower bounds.
@@ -194,8 +249,14 @@ def fixed_radius_nns(
 
     Candidates are sorted by (distance, index) ascending — the exact dense
     threshold + top-k order, whatever the plan. Pruned streaming scans
-    also report the per-query `blocks_touched`.
+    also report the per-query `blocks_touched`. An `np.memmap` `db_sigs`
+    (with a host `db_mask`) scans out of core (`out_of_core_nns`).
     """
+    if isinstance(db_sigs, np.memmap):
+        return out_of_core_nns(
+            query_sigs, db_sigs, radius, max_candidates, db_mask=db_mask,
+            scan_block=scan_block, n_valid=n_valid, summary=summary,
+            prune=prune)
     n, _ = db_sigs.shape
     use_stream = _plan_streams(n, scan_block)
     block = DEFAULT_SCAN_BLOCK if not scan_block else scan_block
@@ -235,6 +296,120 @@ def fixed_radius_nns(
         idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
         dist = torch.nn.functional.pad(dist, (0, pad), value=BIG_DIST)
     return NNSResult(indices=idx, distances=dist, counts=counts)
+
+
+def out_of_core_nns(
+    query_sigs: torch.Tensor,  # (q, words) int32
+    db_sigs: np.ndarray,  # (n, words) uint32 / int32 host array or memmap
+    radius: int,
+    max_candidates: int = 128,
+    db_mask=None,  # (n,) bool host array — tombstones
+    *,
+    scan_block: int | None = None,
+    n_valid: int | None = None,
+    summary: BlockSummary | None = None,
+    prune: bool | None = None,
+    chunk_rows: int = OUTOFCORE_CHUNK_ROWS,
+) -> NNSResult:
+    """Fixed-radius NNS over a host-resident (memmapped) signature DB.
+
+    Only summary blocks that some query admits are gathered, a chunk of
+    `chunk_rows` rows at a time (`ops.streaming_nns_outofcore`), so the
+    pages of blocks every query prunes are never read. The prune mask is
+    computed on the queries' device and read back once. Results, and
+    `blocks_touched`, equal the resident streaming scan's with the same
+    mask and summary.
+    """
+    block = DEFAULT_SCAN_BLOCK if not scan_block else scan_block
+    prune_np = blocks_touched = block_rows = None
+    if summary is not None and prune is not False:
+        pm, blocks_touched = _prune_mask(query_sigs, summary, radius)
+        prune_np = pm.cpu().numpy()
+        block_rows = summary.block_rows
+    indices, distances, counts = ops.streaming_nns_outofcore(
+        query_sigs, db_sigs, radius=radius, max_candidates=max_candidates,
+        scan_block=block, n_valid=n_valid, db_mask=db_mask,
+        prune_blocks=prune_np, prune_block_rows=block_rows,
+        chunk_rows=chunk_rows)
+    return NNSResult(indices=indices, distances=distances, counts=counts,
+                     blocks_touched=blocks_touched)
+
+
+def delta_scan(
+    query_sigs: torch.Tensor,  # (q, words) int32
+    delta_sigs: torch.Tensor,  # (D, words) int32 — delta shard signatures
+    delta_ids: torch.Tensor,  # (D,) int32 — global id a slot, EMPTY_ID free
+    radius: int,
+    max_candidates: int = 128,
+) -> NNSResult:
+    """Scan the delta shard densely; the indices are GLOBAL item ids.
+
+    Live slots are sorted by id (`serving/catalog.py` keeps them so), so
+    the (distance, slot) truncation keeps exactly what a (distance, id)
+    truncation would. Free slots (`EMPTY_ID`) never match or count.
+    """
+    k = min(max_candidates, delta_sigs.shape[0])
+    res = fixed_radius_nns(query_sigs, delta_sigs, radius, k,
+                           db_mask=delta_ids != EMPTY_ID, scan_block=0)
+    gids = torch.where(res.indices >= 0,
+                       delta_ids[res.indices.clamp(min=0).long()], -1)
+    dist = res.distances
+    if k < max_candidates:
+        pad = max_candidates - k
+        gids = torch.nn.functional.pad(gids, (0, pad), value=-1)
+        dist = torch.nn.functional.pad(dist, (0, pad), value=BIG_DIST)
+    return NNSResult(indices=gids, distances=dist, counts=res.counts)
+
+
+def merge_delta_candidates(base: NNSResult, delta: NNSResult,
+                           max_candidates: int) -> NNSResult:
+    """Merge the base and delta candidate buffers into the exact (distance,
+    id) order of a rebuilt table.
+
+    An id is in at most one buffer (an overwritten base row is tombstoned
+    out of the base scan). One stable sort on id (invalid slots last) puts
+    the concatenation in ascending-id order; `merge_candidate_buffers`'
+    stable sort on distance then breaks ties by id. Counts add; the base
+    scan's `blocks_touched` passes through (the delta scan is dense).
+    """
+    ids = torch.cat([base.indices, delta.indices], dim=1)
+    dist = torch.cat([base.distances, delta.distances], dim=1)
+    order = torch.sort(torch.where(ids < 0, EMPTY_ID, ids), dim=-1,
+                       stable=True).indices
+    ids = torch.gather(ids, 1, order)
+    dist = torch.gather(dist, 1, order)
+    idx, d = merge_candidate_buffers(ids, dist, max_candidates)
+    return NNSResult(indices=idx, distances=d,
+                     counts=base.counts + delta.counts,
+                     blocks_touched=base.blocks_touched)
+
+
+def delta_aware_nns(
+    query_sigs: torch.Tensor,  # (q, words) int32
+    db_sigs: torch.Tensor,  # (n, words) int32 — read-only base epoch
+    delta_sigs: torch.Tensor,  # (D, words) int32 — bounded delta shard
+    delta_ids: torch.Tensor,  # (D,) int32 — global ids, EMPTY_ID = free
+    radius: int,
+    max_candidates: int = 128,
+    *,
+    db_mask: torch.Tensor | None = None,  # (n,) bool — base tombstones
+    scan_block: int | None = None,
+    n_valid: int | None = None,
+    superblock: int | None = None,
+    summary: BlockSummary | None = None,
+    prune: bool | None = None,
+) -> NNSResult:
+    """Fixed-radius NNS over a read-only base plus the delta shard: the
+    base through its plan (tombstones masked, optionally pruned), the
+    delta dense, merged — equal to `fixed_radius_nns` over the rebuilt
+    table."""
+    base = fixed_radius_nns(query_sigs, db_sigs, radius, max_candidates,
+                            db_mask=db_mask, scan_block=scan_block,
+                            n_valid=n_valid, superblock=superblock,
+                            summary=summary, prune=prune)
+    delta = delta_scan(query_sigs, delta_sigs, delta_ids, radius,
+                       max_candidates)
+    return merge_delta_candidates(base, delta, max_candidates)
 
 
 def cosine_topk(query_vecs: torch.Tensor, db_vecs: torch.Tensor, k: int):

@@ -54,6 +54,22 @@
 //           either way; the pinned row is also right where the two differ
 //           (an `INVALID_ID` sentinel slot holds a zero row), and the probe
 //           is needed for the counters anyway.
+//   Side:   a segment may carry a side table for this call: ascending
+//           ids (`EMPTY_ID` padding), int8 rows and f32 scales. The live
+//           catalog's delta shard (`src/repro/serving/catalog.py`
+//           `delta_cached_rows`) and the tiered catalog's per-batch overlay
+//           (`src/repro/serving/tiered.py` `_overlay_rows`) are both one.
+//           A slot resolves in this order: a side-table hit (the same lower
+//           bound search, on the side ids) reads value * scale of that slot;
+//           else an id at or past the base table's rows reads zeros (a
+//           segment with a side table and no base rows reads zeros for
+//           every id the side table lacks); else the hot probe and the cold
+//           row as above. The hot probe runs for every live slot, so the
+//           hits stay hot-set hits (a side-table hit is no cache hit); the
+//           live catalog keeps its delta and hot set disjoint. Up to 2048
+//           side ids are staged in shared memory beside the hot ids; the
+//           side table adds one search a slot and, in the bound, its rows'
+//           d + 4 bytes and its ids.
 //   Counters: zeroed by a `cudaMemsetAsync` in the same call, only when a
 //           segment is counted.
 #include <limits.h>
@@ -65,13 +81,13 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSegs = 8;
-// hot sets up to this capacity are searched in shared memory
+// hot sets and side tables up to this size are searched in shared memory
 constexpr int kSmemHot = 2048;
 // floats per row of a warp's transposition tile (16-byte aligned rows)
 constexpr int kTileLd = 36;
 // int64 fields per segment, as the Python side packs them
 constexpr int kStaticFields = 11;
-constexpr int kCallFields = 7;
+constexpr int kCallFields = 11;
 
 struct Seg {
   const int8_t* values;
@@ -79,11 +95,14 @@ struct Seg {
   const int32_t* hot_ids;  // null: no hot set
   const float* hot_rows;
   const int32_t* ids;
+  const int32_t* side_ids;  // null: no side table
+  const int8_t* side_values;
+  const float* side_scales;
   const float* weights;  // null: every weight is 1
   const uint8_t* valid;  // null: every batch row is real
   float* out;
   long long out_stride;  // floats between output rows
-  int n_rows, d, hot_cap, mean, counted, column;
+  int n_rows, d, hot_cap, side_n, mean, counted, column;
   int L;      // slots per output row
   int rows;   // output rows
   int group;  // output rows per batch row (N for candidate rows, else 1)
@@ -95,21 +114,25 @@ struct Params {
   Seg seg[kMaxSegs];
   int* counters;  // [hits, lookups] of the counted segments
   int n_segs;
-  int smem_hot;  // hot ids a block stages in shared memory
+  int smem_hot;   // hot ids a block stages in shared memory
+  int smem_side;  // side ids a block stages in shared memory
 };
 
 // One slot as its lane holds it: the id (-1: padding, or a padding row of
-// the batch), its weight, and once probed its hot row (-1: cold) and the
-// scale of its (clamped) table row.
+// the batch), its weight, and once probed its hot row (-1: not hot), its
+// source (a side-table slot, kCold, or kZero) and the scale of that row.
+constexpr int kCold = -1;
+constexpr int kZero = -2;
 struct Slot {
   int id;
   float w;
   int pos;
+  int src;
   float sc;
 };
 
 __device__ __forceinline__ Slot load_slot(const Seg& g, int j, bool live) {
-  Slot t{-1, 1.f, -1, 0.f};
+  Slot t{-1, 1.f, -1, kCold, 0.f};
   if (live) {  // the id, the row's valid byte and the weight together
     const int id = __ldg(g.ids + j);
     const bool ok = g.valid == nullptr || g.valid[j / g.L / g.group];
@@ -119,28 +142,45 @@ __device__ __forceinline__ Slot load_slot(const Seg& g, int j, bool live) {
   return t;
 }
 
-// The hot-cache probe (`_probe`): the lower bound of id in the ascending
-// hot ids, clamped to [0, capacity - 1]; a hit iff the id is there. The
-// cold scale's load goes out first and flies during the search.
-__device__ __forceinline__ void probe(const Seg& g, const int32_t* hot,
-                                      Slot& t) {
-  if (t.id < 0) return;
-  t.sc = __ldg(g.scales + min(t.id, g.n_rows - 1));
-  if (g.hot_cap == 0) return;
-  int lo = 0, hi = g.hot_cap;
+// The lower bound of id in n ascending ids, clamped to [0, n - 1] (the
+// `searchsorted` of `_probe` and of `delta_rows`).
+__device__ __forceinline__ int lower_bound(const int32_t* a, int n, int id) {
+  int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (hot[mid] < t.id)
+    if (a[mid] < id)
       lo = mid + 1;
     else
       hi = mid;
   }
-  lo = min(lo, g.hot_cap - 1);
-  if (hot[lo] == t.id) t.pos = lo;
+  return min(lo, n - 1);
+}
+
+// Resolve a live slot: the side table first, then ids past the base table
+// (zeros when a side table is present), then the cold row; the hot probe
+// (`_probe`: a hit iff the id is at its lower bound) runs for every live
+// slot. The scale's load goes out first and flies during the hot search.
+__device__ __forceinline__ void probe(const Seg& g, const int32_t* hot,
+                                      const int32_t* side, Slot& t) {
+  if (t.id < 0) return;
+  if (g.side_n) {
+    const int sp = lower_bound(side, g.side_n, t.id);
+    if (side[sp] == t.id) {
+      t.src = sp;
+      t.sc = __ldg(g.side_scales + sp);
+    } else if (t.id >= g.n_rows) {
+      t.src = kZero;
+    }
+  }
+  if (t.src == kCold) t.sc = __ldg(g.scales + min(t.id, g.n_rows - 1));
+  if (g.hot_cap == 0) return;
+  const int hp = lower_bound(hot, g.hot_cap, t.id);
+  if (hot[hp] == t.id) t.pos = hp;
 }
 
 // x[k] = the slot's term for column c + k, (value * scale) * w, where the
-// value * scale of a hit is its pinned row; 0 for a padding slot or past d.
+// value * scale of a hot hit is its pinned row and of a zero slot 0; 0 for
+// a padding slot or past d.
 __device__ __forceinline__ void terms16(const Seg& g, const Slot& t, int c,
                                         float (&x)[16]) {
   if (t.id < 0) {
@@ -148,9 +188,19 @@ __device__ __forceinline__ void terms16(const Seg& g, const Slot& t, int c,
     for (int k = 0; k < 16; ++k) x[k] = 0.f;
     return;
   }
-  const size_t cold = static_cast<size_t>(min(t.id, g.n_rows - 1));
+  if (t.src == kZero) {  // (0 * w), as the plain version multiplies it
+#pragma unroll
+    for (int k = 0; k < 16; ++k) x[k] = __fmul_rn(0.f, t.w);
+    return;
+  }
+  // the int8 row a cold or side-table slot reads
+  const int8_t* row =
+      t.src >= 0 ? g.side_values + static_cast<size_t>(t.src) * g.d
+                 : g.values + static_cast<size_t>(min(t.id, g.n_rows - 1)) *
+                                  g.d;
+  const bool pinned = t.src == kCold && t.pos >= 0;
   if (g.vec) {
-    if (t.pos >= 0) {
+    if (pinned) {
       const float4* h = reinterpret_cast<const float4*>(
           g.hot_rows + static_cast<size_t>(t.pos) * g.d + c);
 #pragma unroll
@@ -162,8 +212,7 @@ __device__ __forceinline__ void terms16(const Seg& g, const Slot& t, int c,
         x[4 * k + 3] = f.w;
       }
     } else {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(g.values +
-                                                         cold * g.d + c));
+      const int4 v = __ldg(reinterpret_cast<const int4*>(row + c));
       const int w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int k = 0; k < 16; ++k)
@@ -176,11 +225,9 @@ __device__ __forceinline__ void terms16(const Seg& g, const Slot& t, int c,
     for (int k = 0; k < 16; ++k) {
       const int col = c + k;
       x[k] = col >= g.d ? 0.f
-             : t.pos >= 0
+             : pinned
                  ? __ldg(g.hot_rows + static_cast<size_t>(t.pos) * g.d + col)
-                 : __fmul_rn(static_cast<float>(__ldg(g.values + cold * g.d +
-                                                      col)),
-                             t.sc);
+                 : __fmul_rn(static_cast<float>(__ldg(row + col)), t.sc);
     }
   }
 #pragma unroll
@@ -214,7 +261,8 @@ __device__ __forceinline__ void one_slot_row(const Seg& g, int row,
 // writes its slot's 32 terms to a row of the warp's tile, and lane c sums
 // column c down the tile in slot order.
 __device__ __forceinline__ void bag_row(const Seg& g, const int32_t* hot,
-                                        int row, int lane, Slot first,
+                                        const int32_t* side, int row,
+                                        int lane, Slot first,
                                         float* tile, int& hits,
                                         int& lookups) {
   for (int c0 = 0; c0 < g.d; c0 += 32) {
@@ -224,7 +272,7 @@ __device__ __forceinline__ void bag_row(const Seg& g, const int32_t* hot,
       Slot t = first;
       if (c0 || base) {
         t = load_slot(g, row * g.L + base + lane, base + lane < g.L);
-        probe(g, hot, t);
+        probe(g, hot, side, t);
       }
       const int live = __popc(__ballot_sync(repro::kFullMask, t.id >= 0));
       count += live;
@@ -257,7 +305,7 @@ __device__ __forceinline__ void bag_row(const Seg& g, const int32_t* hot,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pool_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 2) pool_kernel(const Params p) {
   extern __shared__ int32_t hot_s[];
   __shared__ __align__(16) float tiles[kWarps][32 * kTileLd];
   __shared__ int block_counts[2];
@@ -283,10 +331,16 @@ __global__ void __launch_bounds__(kThreads, 1) pool_kernel(const Params p) {
   if (staged)
     for (int i = threadIdx.x; i < g.hot_cap; i += kThreads)
       hot_s[i] = __ldg(g.hot_ids + i);
+  int32_t* side_s = hot_s + p.smem_hot;
+  const bool side_staged = g.side_n > 0 && g.side_n <= p.smem_side;
+  if (side_staged)
+    for (int i = threadIdx.x; i < g.side_n; i += kThreads)
+      side_s[i] = __ldg(g.side_ids + i);
   if (threadIdx.x < 2) block_counts[threadIdx.x] = 0;
   __syncthreads();
   const int32_t* hot = staged ? hot_s : g.hot_ids;
-  probe(g, hot, t);
+  const int32_t* side = side_staged ? side_s : g.side_ids;
+  probe(g, hot, side, t);
   int hits = 0, lookups = 0;
   if (r0 < r1) {
     if (g.L == 0) {  // empty bags pool to zero rows
@@ -298,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1) pool_kernel(const Params p) {
       hits = __popc(__ballot_sync(repro::kFullMask, t.pos >= 0));
       if (r0 + lane < r1) one_slot_row(g, r0 + lane, t);
     } else {
-      bag_row(g, hot, r0, lane, t, tiles[warp], hits, lookups);
+      bag_row(g, hot, side, r0, lane, t, tiles[warp], hits, lookups);
     }
   }
   if (g.counted) {  // the same for the whole block
@@ -318,8 +372,10 @@ __global__ void __launch_bounds__(kThreads, 1) pool_kernel(const Params p) {
 
 // stat: per segment 11 int64 fields, fixed for a stage (values, scales,
 // hot_ids, hot_rows, n_rows, d, hot_cap, mean, column, counted, masked);
-// call: per segment 7 int64 fields of this call (ids, weights, out, L,
-// rows, group, out_stride). valid: (B,) bool of the batch rows, for the
+// n_rows may be 0 (no base rows) only with a side table. call: per segment
+// 11 int64 fields of this call (ids, weights, out, L, rows, group,
+// out_stride, side_ids, side_values, side_scales, side_n; side_ids null or
+// side_n 0: no side table). valid: (B,) bool of the batch rows, for the
 // masked segments, or null. counters: 2 int32 (hits, lookups), zeroed
 // here, then summed over the counted segments; may be null if no segment
 // is counted.
@@ -328,13 +384,19 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
                              void* stream) {
   if (n_segs < 1 || n_segs > kMaxSegs)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the card's SM count, read once (it only shapes the grid)
+  // the card's SM count, read once (it only shapes the grid), and the
+  // kernel's dynamic shared memory opted in past the 48 KB default: the
+  // staged hot and side ids beside the static tiles
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(pool_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               2 * kSmemHot * sizeof(int32_t));
     if (e != cudaSuccess) return static_cast<int>(e);
     sms = max(sms, 1);
   }
@@ -365,7 +427,14 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
     g.rows = static_cast<int>(c[4]);
     g.group = static_cast<int>(c[5]);
     g.out_stride = c[6];
-    if (g.n_rows < 1 || g.d < 1 || g.L < 0 || g.rows < 0 || g.group < 1 ||
+    g.side_ids = reinterpret_cast<const int32_t*>(c[7]);
+    g.side_values = reinterpret_cast<const int8_t*>(c[8]);
+    g.side_scales = reinterpret_cast<const float*>(c[9]);
+    g.side_n = g.side_ids ? static_cast<int>(c[10]) : 0;
+    if (g.side_n == 0) g.side_ids = nullptr;
+    if (g.n_rows < (g.side_n ? 0 : 1) || g.d < 1 || g.L < 0 || g.rows < 0 ||
+        g.group < 1 || g.side_n < 0 ||
+        (g.side_n && (!g.side_values || !g.side_scales)) ||
         (g.hot_ids && (g.hot_cap < 1 || !g.hot_rows)) ||
         static_cast<long long>(g.rows) * g.L >= INT_MAX ||
         g.out_stride < g.column + g.d)
@@ -379,7 +448,8 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
     const auto aligned = [](const void* ptr) {
       return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
     };
-    g.vec = g.d % 16 == 0 && aligned(g.values) &&
+    g.vec = g.d % 16 == 0 && (g.n_rows == 0 || aligned(g.values)) &&
+            (!g.side_n || aligned(g.side_values)) &&
             (!g.hot_ids || aligned(g.hot_rows)) && aligned(g.out) &&
             g.out_stride % 4 == 0 && g.column % 4 == 0;
     g.block0 = static_cast<int>(blocks);
@@ -388,6 +458,7 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
     if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
     counted |= g.counted != 0;
     if (g.hot_cap <= kSmemHot) p.smem_hot = max(p.smem_hot, g.hot_cap);
+    if (g.side_n <= kSmemHot) p.smem_side = max(p.smem_side, g.side_n);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (counted) {
@@ -396,7 +467,7 @@ REPRO_API int embedding_pool(const int64_t* stat, const int64_t* call,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (blocks == 0) return 0;
-  const size_t smem = sizeof(int32_t) * p.smem_hot;
+  const size_t smem = sizeof(int32_t) * (p.smem_hot + p.smem_side);
   pool_kernel<<<static_cast<int>(blocks), kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

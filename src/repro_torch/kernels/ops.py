@@ -13,20 +13,27 @@ Signatures mirror `repro/kernels/ops.py`.
 from __future__ import annotations
 
 import ctypes
+import mmap
 import os
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import check_tensor as _check
 from repro_torch.kernels.build import launch_counts, reset_launches
-from repro_torch.kernels.ref import PoolSegment
-from repro_torch.kernels.streaming_nns import streaming_nns_cuda
+from repro_torch.kernels.ref import PoolSegment, SideTable
+from repro_torch.kernels.streaming_nns import (
+    BIG_DIST,
+    merge_chunk_buffers,
+    streaming_nns_cuda,
+)
 
-__all__ = ["PoolPlan", "PoolSegment", "embedding_pool", "flash_attention",
-           "flash_attention_bhsd", "grouped_pool", "hamming_distances",
-           "int8_matmul", "streaming_nns", "launch_counts", "reset_launches",
-           "use_kernel"]
+__all__ = ["PoolPlan", "PoolSegment", "SideTable", "embedding_pool",
+           "flash_attention", "flash_attention_bhsd", "grouped_pool",
+           "hamming_distances", "int8_matmul", "madvise_dontneed",
+           "madvise_random", "streaming_nns", "streaming_nns_outofcore",
+           "launch_counts", "reset_launches", "use_kernel"]
 
 _MODES = ("cuda", "torch")
 _FLASH_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in flash_attention.cu
@@ -40,7 +47,10 @@ _HAMMING_MAX_Q = 65535 * 64
 _HAMMING_MAX_N = 2**31 - 1 - 64
 # embedding_pool.cu: segments a launch, and int64 fields a segment per call
 _POOL_MAX_SEGMENTS = 8
-_POOL_CALL_FIELDS = 7
+_POOL_CALL_FIELDS = 11
+# chunks of the out-of-core scan in flight at once: each holds a pinned
+# staging buffer until its copy's event
+_OUTOFCORE_INFLIGHT = 2
 
 
 def use_kernel(name: str, t: torch.Tensor) -> bool:
@@ -80,8 +90,11 @@ def _hamming_cuda(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
 class PoolPlan:
     """A serve stage's pool segments (`ref.PoolSegment`), checked once, with
     the kernel's fixed descriptor (table and hot-set pointers, shapes,
-    modes, columns) packed once: a call adds only its ids, weights and
-    outputs. The plan holds its tables, so the pointers stay valid."""
+    modes, columns) packed once: a call adds its ids, weights, outputs and
+    side tables. A segment's own side table (`PoolSegment.side`, the live
+    catalog's delta) is checked here and passed on every call; a call may
+    give another (the tiered catalog's per-batch overlay). The plan holds
+    its tables, so the pointers stay valid."""
 
     def __init__(self, segments):
         segments = tuple(segments)
@@ -105,6 +118,8 @@ class PoolPlan:
         self._ends = [seg.column + seg.values.shape[1] for seg in segments]
         self._rows = [seg.mode == "rows" for seg in segments]
         self._masked = [seg.masked for seg in segments]
+        self._sides = [self._side_fields(seg.side, seg.values.shape[1], dev)
+                       for seg in segments]
         # the widest output row the segments write (columns 0..width)
         self.width = max(self._ends)
         self.counted = any(seg.counted for seg in segments)
@@ -117,7 +132,7 @@ class PoolPlan:
         _check(op, seg.values, "values", torch.int8, dev)
         _check(op, seg.scales, "scales", torch.float32, dev)
         n, d = seg.values.shape
-        if n < 1 or d < 1 or seg.scales.shape != (n, 1):
+        if n < 0 or d < 1 or seg.scales.shape != (n, 1):
             raise ValueError(f"{op}: values {tuple(seg.values.shape)}, "
                              f"scales {tuple(seg.scales.shape)}")
         if seg.mode not in ref.POOL_MODES or seg.column < 0:
@@ -129,12 +144,35 @@ class PoolPlan:
                 raise ValueError(f"{op}: hot_rows "
                                  f"{tuple(seg.hot_rows.shape)}")
 
-    def launch(self, ids, outs, valid=None, weights=None):
-        """The kernel on this call's tensors -> counters or None."""
+    @staticmethod
+    def _side_fields(side, d, dev):
+        """A side table's four call fields (ids, values, scales, count),
+        checked; zeros for None or an empty table."""
+        if side is None or side.ids.shape[0] == 0:
+            return [0, 0, 0, 0]
+        op = "embedding_pool"
+        _check(op, side.ids, "side ids", torch.int32, dev)
+        _check(op, side.values, "side values", torch.int8, dev)
+        _check(op, side.scales, "side scales", torch.float32, dev)
+        D = side.ids.shape[0]
+        if (side.ids.dim() != 1 or side.values.shape != (D, d)
+                or side.scales.shape != (D, 1)):
+            raise ValueError(f"{op}: side table ids "
+                             f"{tuple(side.ids.shape)}, values "
+                             f"{tuple(side.values.shape)}, scales "
+                             f"{tuple(side.scales.shape)}")
+        return [side.ids.data_ptr(), side.values.data_ptr(),
+                side.scales.data_ptr(), D]
+
+    def launch(self, ids, outs, valid=None, weights=None, sides=None):
+        """The kernel on this call's tensors -> counters or None. `sides`:
+        None, or a `SideTable` or None a segment, replacing the segment's
+        own side table for this call."""
         op = "embedding_pool"
         n = len(self.segments)
         if len(ids) != n or len(outs) != n or (
-                weights is not None and len(weights) != n):
+                weights is not None and len(weights) != n) or (
+                sides is not None and len(sides) != n):
             raise ValueError(f"{op}: {n} segments, {len(ids)} ids, "
                              f"{len(outs)} outputs")
         vptr = None
@@ -170,8 +208,16 @@ class PoolPlan:
                     raise ValueError(f"{op}: weights "
                                      f"{tuple(weights[s].shape)}")
                 wptr = weights[s].data_ptr()
+            side = self._sides[s]
+            if sides is not None and sides[s] is not None:
+                side = self._side_fields(sides[s],
+                                         self.segments[s].values.shape[1],
+                                         self.device)
+            if side[3] == 0 and self.segments[s].values.shape[0] == 0:
+                raise ValueError(f"{op}: segment {s} has no rows and no "
+                                 f"side table")
             call += [x.data_ptr(), wptr, out.data_ptr(), L, rows, group,
-                     out.shape[-1]]
+                     out.shape[-1], *side]
         counts = (torch.empty(2, dtype=torch.int32, device=self.device)
                   if self.counted else None)
         build.EMBEDDING_POOL.launch(
@@ -181,17 +227,20 @@ class PoolPlan:
         return counts
 
 
-def grouped_pool(plan: PoolPlan, ids, outs, valid=None, weights=None):
+def grouped_pool(plan: PoolPlan, ids, outs, valid=None, weights=None,
+                 sides=None):
     """Every segment of a stage in one launch: segment s pools `ids[s]`
     ((B, L) int32, -1 padded; (B, N) for a "rows" segment) into columns
     [column, column + d) of each row of `outs[s]` ((B, W) f32, or
     (B, N, W)), in place. `valid` ((B,) bool) masks the batch's padding
     rows in the masked segments; `weights` is None or one (B, L) f32
-    tensor (or None) per segment. Returns the (2,) int32 [hits, lookups]
-    of the counted segments, or None if none is counted."""
+    tensor (or None) per segment; `sides` is None or one `SideTable` (or
+    None: the segment's own) per segment. Returns the (2,) int32 [hits,
+    lookups] of the counted segments, or None if none is counted."""
     if use_kernel("embedding_pool", ids[0]):
-        return plan.launch(ids, outs, valid, weights)
-    return ref.grouped_pool_ref(plan.segments, ids, outs, valid, weights)
+        return plan.launch(ids, outs, valid, weights, sides)
+    return ref.grouped_pool_ref(plan.segments, ids, outs, valid, weights,
+                                sides)
 
 
 def embedding_pool(table_values, table_scales, ids, weights=None):
@@ -240,6 +289,118 @@ def streaming_nns(queries, db, *, radius, max_candidates,
         queries, db, radius, max_candidates, scan_block=scan_block,
         n_valid=n_valid, superblock=superblock, db_mask=db_mask,
         prune_blocks=prune_blocks, prune_block_rows=prune_block_rows)
+
+
+def _madvise(arr, advice: str) -> bool:
+    """`madvise(advice)` on a memmapped array's mapping; False (a no-op)
+    for a plain array or a platform without that advice."""
+    mm = getattr(arr, "_mmap", None)
+    if mm is None or not hasattr(mmap, advice):
+        return False
+    try:
+        mm.madvise(getattr(mmap, advice))
+        return True
+    except (ValueError, OSError):
+        return False
+
+
+def madvise_dontneed(arr) -> bool:
+    """Drop a memmapped array's resident pages (MADV_DONTNEED); the data is
+    never modified, only evicted."""
+    return _madvise(arr, "MADV_DONTNEED")
+
+
+def madvise_random(arr) -> bool:
+    """Turn off readahead on a memmapped array (MADV_RANDOM): scattered row
+    reads then fault one page each, not up to 128 KB."""
+    return _madvise(arr, "MADV_RANDOM")
+
+
+def streaming_nns_outofcore(queries, db, *, radius, max_candidates,
+                            scan_block=4096, n_valid=None, db_mask=None,
+                            prune_blocks=None, prune_block_rows=None,
+                            chunk_rows=1 << 18):
+    """`streaming_nns` over a host-resident (typically `np.memmap`) DB.
+
+    `db` (n, words) uint32 / int32 on the host; `db_mask` and
+    `prune_blocks` ((q, nb) bool, True = skip) are host arrays. Summary
+    blocks every query prunes are never read. The admitted blocks are
+    gathered on the host, `chunk_rows` rows at a time, into pinned staging
+    buffers (zero-padded, the padding ineligible) and copied to the
+    queries' device without blocking; each chunk is one masked streaming
+    scan with `n_valid` (the kernel on a CUDA device), whose rows map back
+    to global ids on the device. At most `_OUTOFCORE_INFLIGHT` chunks are
+    staged at once: a staging buffer is reused only after its copy's event.
+    The chunks' buffers merge with `merge_chunk_buffers`. Returns
+    (indices, distances, counts) equal to the resident `streaming_nns`
+    with the same mask and a sound prune mask.
+    """
+    n, words = (int(x) for x in db.shape)
+    q = int(queries.shape[0])
+    dev = queries.device
+    limit = n if n_valid is None else min(int(n_valid), n)
+    mask_np = None if db_mask is None else np.asarray(db_mask, bool)
+    if prune_blocks is not None:
+        br = int(prune_block_rows)
+        kept = np.nonzero(~np.asarray(prune_blocks, bool).all(axis=0))[0]
+    else:
+        br = max(1, int(chunk_rows))
+        kept = np.arange(-(-n // br))
+    kept = kept[kept * br < limit]
+    if kept.size == 0 or limit <= 0:
+        return (torch.full((q, max_candidates), -1, dtype=torch.int32,
+                           device=dev),
+                torch.full((q, max_candidates), BIG_DIST, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((q,), dtype=torch.int32, device=dev))
+
+    group = max(1, int(chunk_rows) // br)  # admitted blocks a chunk
+    cap = group * br
+    on_card = dev.type == "cuda"
+    src = np.asarray(db).view(np.uint32) if db.dtype == np.int32 else db
+    slots = []
+    for _ in range(min(_OUTOFCORE_INFLIGHT, -(-kept.size // group))):
+        host = [torch.empty(shape, dtype=dtype, pin_memory=on_card)
+                for shape, dtype in (((cap, words), torch.int32),
+                                     ((cap,), torch.bool),
+                                     ((cap,), torch.int32))]
+        slots.append([host, None])
+    chunks = []
+    counts = torch.zeros((q,), dtype=torch.int32, device=dev)
+    for i, g in enumerate(range(0, kept.size, group)):
+        host, copied = slots[i % len(slots)]
+        if copied is not None:
+            copied.synchronize()  # its last chunk's copy has left it
+        rows_h, elig_h, map_h = host
+        blk = kept[g:g + group]
+        idx = (blk[:, None] * br + np.arange(br)).reshape(-1)
+        m = idx.shape[0]
+        within = idx < limit
+        idx_c = np.minimum(idx, n - 1)
+        rows_np = rows_h.numpy().view(np.uint32)
+        np.take(src, idx_c, axis=0, out=rows_np[:m])
+        rows_np[m:] = 0
+        elig_np = elig_h.numpy()
+        elig_np[:m] = within if mask_np is None else within & mask_np[idx_c]
+        elig_np[m:] = False
+        map_np = map_h.numpy()
+        map_np[:m] = idx_c
+        map_np[m:] = 0
+        rows_d, elig_d, map_d = (t.to(dev, non_blocking=True)
+                                 for t in host)
+        if on_card:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(dev))
+            slots[i % len(slots)][1] = copied
+        madvise_dontneed(db)
+        lidx, dist, c = streaming_nns(
+            queries, rows_d, radius=radius, max_candidates=max_candidates,
+            scan_block=scan_block, n_valid=m, db_mask=elig_d)
+        gidx = torch.where(lidx >= 0, map_d[lidx.clamp(min=0).long()], -1)
+        chunks.append((gidx, dist))
+        counts += c
+    idx_out, dist_out = merge_chunk_buffers(chunks, max_candidates)
+    return idx_out, dist_out, counts
 
 
 def _flash_cuda(q, k, v, *, causal, scale, q_offset):

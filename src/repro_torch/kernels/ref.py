@@ -31,6 +31,16 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+class SideTable(NamedTuple):
+    """Rows that override a pool segment's table: the live catalog's delta
+    shard (`serving/catalog.py`) or the tiered catalog's per-batch overlay
+    (`serving/tiered.py`). `ids` ascend, padded with `EMPTY_ID`."""
+
+    ids: torch.Tensor  # (D,) int32, ascending, EMPTY_ID padding
+    values: torch.Tensor  # (D, d) int8
+    scales: torch.Tensor  # (D, 1) f32
+
+
 class PoolSegment(NamedTuple):
     """One table of a grouped embedding pool (`grouped_pool_ref`, and the
     kernel's segment behind `kernels/ops.py:grouped_pool`).
@@ -41,7 +51,9 @@ class PoolSegment(NamedTuple):
     `HotRowCache` holds them), or None. counted: the segment's hits and
     lookups go to the stage's counters. masked: the batch's `valid` mask
     applies (a padding row counts no lookup and reads zeros). column: the
-    first of the segment's d columns in each output row.
+    first of the segment's d columns in each output row. side: a
+    `SideTable` whose rows take precedence (`pool_slots`), or None; a
+    segment with a side table may have no base rows (values (0, d)).
     """
 
     values: torch.Tensor  # (n, d) int8
@@ -52,6 +64,7 @@ class PoolSegment(NamedTuple):
     hot_rows: torch.Tensor | None = None  # (K, d) f32
     counted: bool = False
     masked: bool = True
+    side: SideTable | None = None
 
 
 POOL_MODES = ("sum", "mean", "rows")
@@ -64,13 +77,21 @@ def pool_slots(seg: PoolSegment, ids: torch.Tensor,
     The kernel's arithmetic: a slot's row is the pinned f32 row on a hit
     (the hot cache's `_probe`: lower-bound search clamped to the capacity,
     hit iff the id is there and >= 0), else `value * scale` of the clamped
-    id; each term is `row * w`, summed slot by slot from 0 with padding
-    slots (id < 0) adding nothing; `mean` divides by max(count, 1).
+    id. With a side table (`seg.side`, non-empty), a side-table hit (the
+    same search on its ids) reads `value * scale` of that slot instead, and
+    a miss at or past the table's n rows reads zeros (`delta_cached_rows`);
+    hits still count hot-set hits only. Each term is `row * w`, summed slot
+    by slot from 0 with padding slots (id < 0) adding nothing; `mean`
+    divides by max(count, 1).
     """
     n, d = seg.values.shape
     valid = ids >= 0
-    safe = ids.clamp(0, n - 1).long()
-    rows = seg.values[safe].to(torch.float32) * seg.scales[safe]
+    if n > 0:
+        safe = ids.clamp(0, n - 1).long()
+        rows = seg.values[safe].to(torch.float32) * seg.scales[safe]
+    else:
+        rows = torch.zeros(ids.shape + (d,), dtype=torch.float32,
+                           device=ids.device)
     hits = torch.zeros((), dtype=torch.int32, device=ids.device)
     if seg.hot_ids is not None and seg.hot_ids.shape[0] > 0:
         pos = torch.searchsorted(seg.hot_ids, ids).clamp(
@@ -78,6 +99,14 @@ def pool_slots(seg: PoolSegment, ids: torch.Tensor,
         hit = (seg.hot_ids[pos] == ids) & valid
         rows = torch.where(hit[..., None], seg.hot_rows[pos], rows)
         hits = hit.sum(dtype=torch.int32)
+    side = seg.side
+    if side is not None and side.ids.shape[0] > 0:
+        spos = torch.searchsorted(side.ids, ids).clamp(
+            0, side.ids.shape[0] - 1)
+        shit = (side.ids[spos] == ids) & valid
+        srows = side.values[spos].to(torch.float32) * side.scales[spos]
+        rows = torch.where(shit[..., None], srows,
+                           torch.where((ids < n)[..., None], rows, 0.0))
     acc = torch.zeros((ids.shape[0], d), dtype=torch.float32,
                       device=ids.device)
     for l in range(ids.shape[1]):
@@ -91,15 +120,20 @@ def pool_slots(seg: PoolSegment, ids: torch.Tensor,
     return acc, hits, valid.sum(dtype=torch.int32)
 
 
-def grouped_pool_ref(segments, ids, outs, valid=None, weights=None):
+def grouped_pool_ref(segments, ids, outs, valid=None, weights=None,
+                     sides=None):
     """Plain grouped embedding pool: segment s pools `ids[s]` (with
     `weights[s]`, if given) into columns [column, column + d) of each row
-    of `outs[s]`, in place. Returns the (2,) int32 [hits, lookups] summed
-    over the counted segments, or None if none is counted."""
+    of `outs[s]`, in place. `sides` (None, or a side table or None a
+    segment) replaces the segments' own side tables for this call. Returns
+    the (2,) int32 [hits, lookups] summed over the counted segments, or
+    None if none is counted."""
     counts = None
     if any(seg.counted for seg in segments):
         counts = torch.zeros(2, dtype=torch.int32, device=ids[0].device)
     for s, seg in enumerate(segments):
+        if sides is not None and sides[s] is not None:
+            seg = seg._replace(side=sides[s])
         x = ids[s]
         if valid is not None and seg.masked:
             x = torch.where(valid[:, None], x, -1)

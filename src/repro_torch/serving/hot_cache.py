@@ -129,6 +129,60 @@ def build_hot_cache(table: QuantizedTensor, freqs=None,
     return HotRowCache(hot_ids=hot_ids, hot_rows=rows, capacity=capacity)
 
 
+def pin_rows(table: QuantizedTensor, ids, capacity: int) -> HotRowCache:
+    """Pin exactly `ids` (unique row ids) into a capacity-`capacity` cache.
+
+    Slots beyond ``len(ids)`` are empty (`INVALID_ID` ids, zero rows): the
+    live catalog's reference rebuild reproduces a churned cache's surviving
+    hot set this way, so the cache counters stay comparable bit for bit.
+    Host-side; the cache lands on the table's device.
+    """
+    d = int(table.values.shape[1])
+    dev = table.values.device
+    ids = np.sort(np.asarray(ids, np.int32).reshape(-1))
+    capacity = max(int(capacity), 0)
+    if len(ids) > capacity:
+        raise ValueError(f"pin_rows: {len(ids)} ids exceed capacity "
+                         f"{capacity}")
+    hot_ids = np.full(capacity, INVALID_ID, np.int32)
+    hot_ids[: len(ids)] = ids
+    rows = torch.zeros((capacity, d), dtype=torch.float32, device=dev)
+    if len(ids):
+        sel = torch.from_numpy(ids.astype(np.int64)).to(dev)
+        rows[: len(ids)] = dequantize_rowwise(QuantizedTensor(
+            values=table.values[sel], scales=table.scales[sel]))
+    return HotRowCache(hot_ids=torch.from_numpy(hot_ids).to(dev),
+                       hot_rows=rows, capacity=capacity)
+
+
+def invalidate_rows(cache: HotRowCache | None, ids) -> HotRowCache | None:
+    """Evict `ids` from the hot set (live-catalog row invalidation).
+
+    A touched row's pinned image is stale the moment its table row
+    changes, so it leaves the hot set; every other row stays pinned.
+    Evicted slots become `INVALID_ID` ids with zero rows, and `hot_ids` is
+    re-sorted stably so the searchsorted probe still holds. Host-side; a
+    cache that holds none of `ids` comes back unchanged (the same object).
+    New tensors are built, so a bucket already queued on the old cache
+    reads the old bits.
+    """
+    if cache is None or cache.capacity == 0:
+        return cache
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    hot = cache.hot_ids.cpu().numpy().copy()
+    dead = np.isin(hot, ids)
+    if not dead.any():
+        return cache
+    hot[dead] = INVALID_ID
+    order = np.argsort(hot, kind="stable")
+    dev = cache.hot_ids.device
+    rows = cache.hot_rows.clone()
+    rows[torch.from_numpy(np.nonzero(dead)[0]).to(dev)] = 0.0
+    perm = torch.from_numpy(order).to(dev)
+    return HotRowCache(hot_ids=torch.from_numpy(hot[order]).to(dev),
+                       hot_rows=rows[perm], capacity=cache.capacity)
+
+
 def _probe(cache: HotRowCache, ids: torch.Tensor):
     """ids (...,) -> (hit mask (...,), position into hot_rows (...,))."""
     pos = torch.searchsorted(cache.hot_ids, ids)
@@ -157,6 +211,12 @@ def cached_rows(cache: HotRowCache | None, table: QuantizedTensor,
     rows = torch.where(hit[..., None], cache.hot_rows[pos], cold)
     rows = torch.where(valid[..., None], rows, 0.0)
     return rows, CacheStats(hits=hit.sum(dtype=torch.int32), lookups=lookups)
+
+
+def cached_lookup(cache: HotRowCache | None, table: QuantizedTensor,
+                  ids: torch.Tensor):
+    """`cached_rows` under the name of `core.embedding.lookup`'s drop-in."""
+    return cached_rows(cache, table, ids)
 
 
 def pool_rows(rows: torch.Tensor, ids: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The frozen iMARS serving pipeline (`repro/serving/recsys_engine.py`).
+"""The iMARS serving pipeline (`repro/serving/recsys_engine.py`).
 
 Per batch, three stages (`serve_step`):
 
@@ -8,7 +8,8 @@ Per batch, three stages (`serve_step`):
      MLP's input, then the MLP -> u;
   2. `_scan_stage`: the LSH signature of u and the fixed-radius Hamming
      NNS over the item signatures (dense plan below `STREAM_MIN_ITEMS`
-     rows, else the pruned streaming plan) -> candidates;
+     rows, else the pruned streaming plan) -> candidates; a live engine
+     also scans its delta shard densely and merges the two buffers;
   3. `_rank_stage`: the candidate rows through the hot cache and the genre
      bag, in one launch of the grouped pool kernel (the rows straight into
      the ranking MLP's input), the ranking MLP, sigmoid and the threshold
@@ -17,9 +18,17 @@ Per batch, three stages (`serve_step`):
 The engine is a plain dataclass of tensors on one device. PyTorch runs
 eagerly, so the stage functions are called directly (the reference jits
 them). The two stages' pool plans (`kernels/ops.py:PoolPlan`: tables, hot
-sets, modes and output columns) do not depend on the batch and are built
-with the engine. The frozen engine serves `delta=None` only; the
-live-catalog paths of `serving/catalog.py` stay for its port.
+sets, side tables, modes and output columns) do not depend on the batch
+and are built with the engine.
+
+A frozen engine has `delta=None` and `item_mask=None`. A live engine
+(`live()`, `serving/catalog.py`) carries a bounded delta shard of pending
+item rows and the base rows' tombstone mask: the base scan masks the
+tombstones, the delta scans dense and merges (`core.nns`), and the
+history and candidate segments of the two pool launches resolve their
+ids through the delta as their side table. An update or a compaction
+builds a new engine (and new plans); the old one stays valid for the
+buckets already queued on it.
 
 The same three stages, dispatched one by one (`lookup_step`, `scan_step`,
 `rank_stage_step`), are what the pipelined front-end
@@ -43,7 +52,9 @@ from repro_torch.core.nns import (
     NNSResult,
     build_block_summary,
     cosine_topk,
+    delta_scan,
     fixed_radius_nns,
+    merge_delta_candidates,
 )
 from repro_torch.core.quantization import (
     QuantizedTensor,
@@ -88,7 +99,8 @@ class RecSysEngine:
     lsh_proj: torch.Tensor  # (embed_dim, n_bits) f32
     item_hot: HotRowCache
     uiet_hot: dict  # name -> HotRowCache
-    delta: object = None  # live-catalog overlay; None when frozen
+    delta: object = None  # catalog.DeltaShard; None when frozen
+    item_mask: torch.Tensor | None = None  # (n,) bool alive base rows
     block_summary: object = None  # core.nns.BlockSummary | None
     cfg: rs.YoutubeDNNConfig = None
     radius: int = 96
@@ -148,6 +160,29 @@ class RecSysEngine:
             radius=radius, n_candidates=n_candidates, top_k=top_k,
             scan_block=scan_block, prune=prune)
 
+    def live(self, delta_capacity: int = 1024) -> "RecSysEngine":
+        """A live-catalog view: an empty delta shard of `delta_capacity`
+        slots and an all-alive tombstone mask (`catalog.ensure_live`)."""
+        from repro_torch.serving.catalog import ensure_live
+
+        return ensure_live(self, delta_capacity)
+
+    def apply_updates(self, upsert_ids=None, upsert_rows=None,
+                      delete_ids=None) -> "RecSysEngine":
+        """A new engine with the update batch in its delta shard
+        (`catalog.engine_apply_updates`); this one stays valid."""
+        from repro_torch.serving.catalog import engine_apply_updates
+
+        return engine_apply_updates(self, upsert_ids, upsert_rows,
+                                    delete_ids)
+
+    def compact(self) -> "RecSysEngine":
+        """A new-epoch engine with the delta folded into a fresh base
+        (`catalog.compact_engine`); this one stays valid."""
+        from repro_torch.serving.catalog import compact_engine
+
+        return compact_engine(self)
+
     def batch_to_device(self, batch: dict) -> dict:
         """A request batch (numpy or tensors) as int32/bool tensors here."""
         return {k: to_device(v, self.device).to(
@@ -205,9 +240,19 @@ def _segment(table: QuantizedTensor, cache: HotRowCache | None, **kw):
         hot_rows=cache.hot_rows if hot else None, **kw)
 
 
+def _delta_side(engine: RecSysEngine) -> ops.SideTable | None:
+    """The delta shard as the item segments' side table (None: frozen)."""
+    delta = engine.delta
+    if delta is None or delta.capacity == 0:
+        return None
+    return ops.SideTable(ids=delta.ids, values=delta.values,
+                         scales=delta.scales)
+
+
 def _lookup_plan(engine: RecSysEngine) -> ops.PoolPlan:
     """The sorted user features' bags, then the mean-pooled history, side
-    by side in the filtering MLP's input (`_features`' concatenation)."""
+    by side in the filtering MLP's input (`_features`' concatenation); the
+    history resolves its ids through the delta shard first."""
     segs, col = [], 0
     for name in sorted(engine.cfg.user_features):
         table = engine.tables_q[name]
@@ -215,38 +260,35 @@ def _lookup_plan(engine: RecSysEngine) -> ops.PoolPlan:
                              column=col, counted=True))
         col += table.values.shape[1]
     segs.append(_segment(engine.item_table_q, engine.item_hot, mode="mean",
-                         column=col, counted=True))
+                         column=col, counted=True, side=_delta_side(engine)))
     return ops.PoolPlan(segs)
 
 
 def _rank_plan(engine: RecSysEngine) -> ops.PoolPlan:
-    """The candidate rows after the context [u, genre, pooled] in the
-    ranking MLP's input, and the genre bag (no cache, no counters, and,
-    as in the reference, read for padding rows too)."""
+    """The candidate rows (through the delta shard first) after the
+    context [u, genre, pooled] in the ranking MLP's input, and the genre
+    bag (no cache, no counters, and, as in the reference, read for padding
+    rows too)."""
     ctx = (engine.params["filter_mlp"][-1]["b"].shape[0]
            + engine.genre_table_q.values.shape[1]
            + engine.item_table_q.values.shape[1])
     return ops.PoolPlan([
         _segment(engine.item_table_q, engine.item_hot, mode="rows",
-                 column=ctx, counted=True),
+                 column=ctx, counted=True, side=_delta_side(engine)),
         _segment(engine.genre_table_q, None, mode="sum", masked=False)])
-
-
-def _frozen_only(engine: RecSysEngine) -> None:
-    if engine.delta is not None:
-        raise NotImplementedError("live-catalog serving is not ported yet")
 
 
 # ---------------------------------------------------------------------------
 # the pipeline stages (batch tensors already on the engine's device)
 # ---------------------------------------------------------------------------
-def _features(engine: RecSysEngine, batch: dict):
+def _features(engine: RecSysEngine, batch: dict, sides=None):
     """Cached lookups + filtering DNN -> (u, pooled_history, CacheStats).
 
     One grouped-pool launch writes every bag into its columns of the MLP's
     input; padding rows (`valid` False) count no lookups and read zeros.
+    `sides` (one side table or None a segment) replaces the segments' own
+    for this batch: the tiered catalog's history overlay.
     """
-    _frozen_only(engine)
     plan = engine.lookup_plan
     hist = batch["history"]
     names = sorted(engine.cfg.user_features)
@@ -254,7 +296,7 @@ def _features(engine: RecSysEngine, batch: dict):
                     device=hist.device)
     counts = ops.grouped_pool(plan, [batch[n][:, None] for n in names]
                               + [hist], [x] * (len(names) + 1),
-                              valid=batch.get("valid"))
+                              valid=batch.get("valid"), sides=sides)
     u = rs._mlp_apply(engine.params["filter_mlp"], x)
     col = plan.segments[-1].column
     pooled = x[:, col:col + engine.item_table_q.values.shape[1]]
@@ -262,12 +304,20 @@ def _features(engine: RecSysEngine, batch: dict):
 
 
 def _nns(engine: RecSysEngine, q_sigs: torch.Tensor) -> NNSResult:
-    """Filtering scan over the item signatures (local plan)."""
-    _frozen_only(engine)
-    return fixed_radius_nns(q_sigs, engine.item_sigs, engine.radius,
+    """Filtering scan (local plan): the base through its routed plan with
+    tombstones masked; a live engine's delta shard scans dense and the two
+    buffers merge into the rebuilt table's (distance, id) order."""
+    base = fixed_radius_nns(q_sigs, engine.item_sigs, engine.radius,
                             engine.n_candidates,
                             scan_block=engine.scan_block,
+                            db_mask=engine.item_mask,
                             summary=engine.block_summary, prune=engine.prune)
+    delta = engine.delta
+    if delta is None or delta.capacity == 0:
+        return base
+    pending = delta_scan(q_sigs, delta.sigs, delta.ids, engine.radius,
+                         engine.n_candidates)
+    return merge_delta_candidates(base, pending, engine.n_candidates)
 
 
 def filter_step(engine: RecSysEngine, batch: dict):
@@ -277,14 +327,14 @@ def filter_step(engine: RecSysEngine, batch: dict):
 
 
 def _rank(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
-          u: torch.Tensor, pooled: torch.Tensor):
+          u: torch.Tensor, pooled: torch.Tensor, sides=None):
     """CTR + threshold top-k given precomputed user features.
 
     One grouped-pool launch writes the candidate rows into the ranking
     MLP's input (padding rows and -1 candidates read zeros and count no
-    lookups) and pools the genre bag; the context fills the rest.
+    lookups) and pools the genre bag; the context fills the rest. `sides`
+    as in `_features` (the tiered catalog's candidate overlay).
     """
-    _frozen_only(engine)
     plan = engine.rank_plan
     valid = batch.get("valid")
     cand = cand.contiguous()
@@ -294,7 +344,7 @@ def _rank(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
     genre = torch.empty((B, engine.genre_table_q.values.shape[1]),
                         dtype=torch.float32, device=cand.device)
     counts = ops.grouped_pool(plan, [cand, batch["genre"][:, None]],
-                              [x, genre], valid=valid)
+                              [x, genre], valid=valid, sides=sides)
     ctx = torch.cat([u, genre, pooled], dim=-1)
     x[..., :ctx.shape[-1]] = ctx[:, None]
     logits = rs._mlp_apply(engine.params["rank_mlp"], x)[..., 0]
@@ -340,10 +390,11 @@ def _scan_stage(engine: RecSysEngine, u: torch.Tensor) -> NNSResult:
 
 
 def _rank_stage(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
-                u: torch.Tensor, pooled: torch.Tensor, stats: CacheStats):
+                u: torch.Tensor, pooled: torch.Tensor, stats: CacheStats,
+                sides=None):
     """Stage 3 — rank candidates, pick the final items -> (final, topk,
     stats')."""
-    top, st = _rank(engine, batch, cand, u, pooled)
+    top, st = _rank(engine, batch, cand, u, pooled, sides)
     picked = torch.gather(cand, 1, top.indices.clamp(min=0).long())
     final = torch.where(top.indices >= 0, picked, -1)
     return final, top, stats + st

@@ -673,3 +673,218 @@ def test_lm_kernels_refuse_bad_input(cuda):
                                     device=cuda),
                         torch.zeros((big_k, 4), dtype=torch.int8,
                                     device=cuda), s4, s1)
+
+
+# ---------------------------------------------------------------------------
+# the live and tiered catalogs on the card
+# ---------------------------------------------------------------------------
+def _side_table(rng, ids, d, capacity, device):
+    """A side table holding `ids` (ascending) with random int8 rows,
+    EMPTY_ID-padded to `capacity`."""
+    from repro_torch.core.nns import EMPTY_ID
+
+    ids = np.sort(np.asarray(ids, np.int32))
+    full = np.full(capacity, EMPTY_ID, np.int32)
+    full[:ids.size] = ids
+    values, scales = _pool_table(rng, capacity, d, device)
+    return ops.SideTable(ids=torch.from_numpy(full).to(device),
+                         values=values, scales=scales)
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "out_of_range",
+                                  "no_base", "large"])
+def test_side_table_pool_equals_plain(cuda, case):
+    """The pool kernel's side table (the live delta, the tiered overlay)
+    bit for bit with the plain version, counters included: an empty delta
+    (all EMPTY_ID; ids past the table then read zeros), a full 1024-slot
+    delta overlapping the ids, ids past the base table that hit or miss
+    it, a segment with no base rows (every miss reads zeros, hot hits
+    still count), and a side table too large for shared memory; the side
+    table static in the plan and given per call."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n, d, B, L = 4000, 32, 64, 20
+    values, scales = _pool_table(rng, n, d, cuda)
+    pick = torch.from_numpy(rng.choice(n, 24, replace=False)).to(cuda)
+    hot_ids, hot_rows = _pinned(values, scales, pick, 32)
+    hot_np = hot_ids.cpu().numpy()
+    if case == "no_base":
+        values, scales = values[:0], scales[:0]
+    ids_np = rng.integers(-1, n + 40, size=(B, L)).astype(np.int32)
+    if case == "empty":
+        side_ids, cap = [], 1024
+    elif case == "large":
+        side_ids, cap = rng.choice(n + 40, 3000 - 40, replace=False), 3000
+        side_ids = side_ids[~np.isin(side_ids, hot_np)]
+    elif case == "no_base":  # the overlay: every present id, hot ones too
+        side_ids, cap = np.unique(ids_np[(ids_np >= 0) & (ids_np < n)]), \
+            B * L
+    else:
+        cand = np.setdiff1d(np.arange(n + 40), hot_np)
+        side_ids = rng.choice(cand, 1024 if case == "full" else 200,
+                              replace=False)
+        cap = 1024
+    side = _side_table(rng, side_ids, d, cap, cuda)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    valid = torch.from_numpy(np.arange(B) % 7 != 3).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(B, L)).astype(np.float32)).to(cuda)
+    for static in (True, False):
+        segs = [ops.PoolSegment(values, scales, mode=m, column=c,
+                                hot_ids=hot_ids, hot_rows=hot_rows,
+                                counted=True,
+                                side=side if static else None)
+                for m, c in (("mean", 0), ("rows", d))]
+        plan = ops.PoolPlan(segs)
+        outs = [torch.full((B, 2 * d), 9.0, device=cuda),
+                torch.full((B, L, 2 * d), 9.0, device=cuda)]
+        sides = None if static else [side, side]
+        got = [o.clone() for o in outs]
+        before = build.EMBEDDING_POOL.launches
+        counts = ops.grouped_pool(plan, [ids, ids], got, valid, [w, None],
+                                  sides)
+        torch.cuda.synchronize()
+        assert build.EMBEDDING_POOL.launches == before + 1
+        want = [o.clone() for o in outs]
+        with _plain("embedding_pool"):
+            want_counts = ops.grouped_pool(plan, [ids, ids], want, valid,
+                                           [w, None], sides)
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt), (case, static)
+        assert torch.equal(counts, want_counts), (case, static)
+        assert int(counts[0]) > 0
+
+
+def _live_setup(device, scan_block, rng):
+    eng, queries = _serving_setup(device, scan_block)
+    from repro_torch.serving import LiveCatalog
+
+    cat = LiveCatalog(eng, delta_capacity=64)
+    d = eng.cfg.embed_dim
+    hot = eng.item_hot.hot_ids[:5].cpu().numpy()
+    cat.upsert(np.r_[hot, 2000, 2003],
+               rng.normal(size=(7, d)).astype(np.float32))
+    cat.delete([11, 2003])
+    return cat, queries
+
+
+@pytest.mark.parametrize("scan_block", [None, 128])
+def test_live_engine_serves_like_the_plain_versions(cuda, scan_block):
+    """A live engine with pending upserts, re-embedded hot rows and
+    deletes serves the same bits with the kernels, with the plain versions
+    (`REPRO_TORCH_*=torch`) and as its `rebuild_reference()`, counters
+    included; a batch launches the pool twice, the delta scan's Hamming
+    kernel once, and the base scan's kernel once."""
+    rng = np.random.default_rng(3)
+    cat, queries = _live_setup(cuda, scan_block, rng)
+    batch = make_server(cat.engine, "sync", max_batch=SERVE_BATCH)._stack_np(
+        list(queries[:SERVE_BATCH]), SERVE_BATCH)
+    batch["history"][:, 0] = 2003  # a retired new id: reads zeros
+    build.reset_launches()
+    got = cat.engine.serve(batch)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert counts["embedding_pool"] == 2
+    if scan_block is None:
+        assert counts["hamming_distances"] == 2 and counts[
+            "streaming_nns"] == 0
+    else:
+        assert counts["hamming_distances"] == 1 and counts[
+            "streaming_nns"] == 1
+    with _plain("hamming_distances", "embedding_pool", "streaming_nns"):
+        plain = cat.engine.serve(batch)
+    assert build.launch_counts() == counts
+    for other in (plain, cat.rebuild_reference().serve(batch)):
+        assert torch.equal(got.items, other.items)
+        assert torch.equal(got.topk.scores, other.topk.scores)
+        for f in ("indices", "distances", "counts", "blocks_touched"):
+            a, b = getattr(got.nns, f), getattr(other.nns, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
+        assert got.stats.as_dict() == other.stats.as_dict()
+
+
+def test_outofcore_scan_equals_resident_scan(cuda, tmp_path):
+    """The out-of-core scan over a memmap (pinned staging, one masked
+    streaming launch a chunk, the row remap on the card) equals the
+    resident pruned streaming scan with the same mask and summary."""
+    from repro_torch.core.nns import out_of_core_nns
+
+    rng = np.random.default_rng(4)
+    n, q, words = 70_000, 64, 8
+    db_np = rng.integers(0, 2**32, (n, words), dtype=np.uint32)
+    mm = np.memmap(tmp_path / "sigs.bin", dtype=np.uint32, mode="w+",
+                   shape=(n, words))
+    mm[:] = db_np
+    mm.flush()
+    alive = rng.random(n) > 0.05
+    db = torch.from_numpy(db_np.view(np.int32)).to(cuda)
+    qs = torch.cat([db[:q // 2], _sigs(rng, q - q // 2, words, cuda)])
+    summary = build_block_summary(db, 4096, db_mask=alive)
+    mask = torch.from_numpy(alive).to(cuda)
+    want = fixed_radius_nns(qs, db, 100, 50, db_mask=mask, scan_block=4096,
+                            summary=summary)
+    build.reset_launches()
+    got = out_of_core_nns(qs, mm, 100, 50, db_mask=alive, summary=summary,
+                          chunk_rows=1 << 14)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["streaming_nns"] == -(-n // (1 << 14))
+    for f in ("indices", "distances", "counts", "blocks_touched"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_live_compact_during_pipelined_serving_depth3(cuda):
+    """An epoch swap under the pipelined ring at depth 3 on the card:
+    buckets dispatched before `compact` finish on the old epoch, later
+    ones serve the new one, and each equals sync serving of its epoch's
+    rebuilt reference bit for bit."""
+    from repro_torch.serving import LiveCatalog
+
+    rng = np.random.default_rng(5)
+    eng, queries = _serving_setup(cuda, None)
+    d = eng.cfg.embed_dim
+    cat = LiveCatalog(eng, delta_capacity=64)
+    cat.upsert(np.arange(2000, 2004), rng.normal(size=(4, d))
+               .astype(np.float32))
+    old_ref = cat.rebuild_reference()
+    pipe = make_server(cat.engine, "pipelined", max_batch=SERVE_BATCH,
+                       depth=3)
+    cat.attach(pipe)
+    tickets = [pipe.submit(q) for q in queries]
+    for _ in range(2):
+        pipe._ring.append(pipe._dispatch(pipe._take_parts()))
+    cat.upsert(np.arange(2004, 2008), rng.normal(size=(4, d))
+               .astype(np.float32))
+    cat.compact()
+    new_ref = cat.rebuild_reference()
+    pipe.flush()
+    got = [pipe.result(t) for t in tickets]
+    cut = 2 * SERVE_BATCH
+    old = make_server(old_ref, "sync", max_batch=SERVE_BATCH).serve_many(
+        queries)
+    new = make_server(new_ref, "sync", max_batch=SERVE_BATCH).serve_many(
+        queries)
+    _served_equal(got[:cut], old[:cut])
+    _served_equal(got[cut:], new[cut:])
+    _served_equal(pipe.serve_many(queries), new)
+
+
+def test_live_pipelined_dispatch_never_waits_on_the_host(cuda):
+    """A live engine's buckets (delta scan, merge, side tables) dispatch
+    under `set_sync_debug_mode("error")` and serve sync's bits."""
+    rng = np.random.default_rng(6)
+    cat, queries = _live_setup(cuda, 128, rng)
+    want = make_server(cat.engine, "sync", max_batch=SERVE_BATCH
+                       ).serve_many(queries)
+    server = make_server(cat.engine, "pipelined", max_batch=SERVE_BATCH,
+                         depth=2)
+    server.serve_many(queries[:SERVE_BATCH])
+    dispatch = server._dispatch
+
+    def checked(parts):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(parts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    server._dispatch = checked
+    _served_equal(server.serve_many(queries), want)
+    assert server.stats()["n_errors"] == 0
