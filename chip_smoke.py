@@ -73,7 +73,29 @@
    restore serving the same bits. Times: serve ms a batch, frozen and
    live on the same batches; tiered ms a batch, its out-of-core scan and
    its host overlays; bytes staged; resident bytes; compactions.
-7. Phase C: each kernel against its plain version on the card at the
+7. Phase G: training and train-while-serve at full width, on the
+   synthetic MovieLens-1M set (6,040 users, 3,000 items, history 20).
+   G.1: `init_youtubednn` from a seeded CUDA generator, 400 filtering steps
+   of `make_recsys_train_step` (batch 256), then 200 AdamW ranking steps
+   (batch 128, 16 candidates): the filtering loss must fall by 0.5; ms a
+   step (host clock, synchronized, median) and `torch.profiler` over one
+   filtering step. G.2: the trained engine (radius 112, 64 candidates, 128
+   hot rows) gives HR@10 in fp32, int8 and lsh modes over every user, in
+   the reference's order (fp32 > 1.2x chance, |fp32 - int8| < 0.02, lsh
+   <= int8 + 0.01). G.3: an `OnlineTrainer` (fold every step, compaction
+   every 4 folds) over a `LiveCatalog` of it (a 3,000-slot delta) trains
+   40 steps on a thread while a concurrent front-end serves 1,024-query
+   rounds: no error ticket, 40 folds, at least 3 epochs, 2 pool and 2
+   Hamming launches a bucket served (base and delta scans); q/s against
+   the same rounds on the frozen engine before and after, staleness, ms a
+   fold and a compaction; then `ShadowHarness` checkpoints now and after
+   10 and 20 more steps, each with gap 0 and full agreement. G.4: a step
+   without a fold leaves the served bits and `engine.params` unchanged.
+   G.5: a `TrainLoop` of 10 steps (checkpoint every 5, no straggler
+   check) stopped by a hard fault at step 7 resumes from step 5 and ends
+   bit-equal to an uninterrupted run. G.6: DLRM at its Table I size, 150
+   AdamW steps of 256: the loss must fall by 0.05.
+8. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -101,7 +123,7 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, D, C in that order. Prints one line per phase (phase E's
+Runs A, B, E, F, G, D, C in that order. Prints one line per phase (phase E's
 and F's with the card's name and power limit), one line per kernel, the card's
 name and power limit as `nvidia-smi` gives them, a `kernels` JSON line,
 and last `{"ok": true, "device": {...}}`; `--record PATH` also writes
@@ -122,9 +144,12 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -180,6 +205,20 @@ LOAD_S = 2.0
 LOAD_TENANTS = 2
 LOAD_POOL = 2048
 LOAD_FRACS = (0.5, 0.1)
+# phase G: training and train-while-serve (examples/train_recsys.py's
+# recipe with the reference's AdamW; its engine's radius and candidates)
+G_BATCH = 256
+G_FILTER_STEPS = 400
+G_RANK_STEPS = 200
+G_RANK_BATCH = 128
+G_CANDS = 16
+G_RADIUS = 112
+G_CANDIDATES = 64
+G_QUERIES = 4 * BATCH
+G_FROZEN_ROUNDS = 10
+G_ONLINE_STEPS = 40
+G_DLRM_STEPS = 150
+WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -999,8 +1038,6 @@ def tiered_phase(eng, batches, freqs, seed: int, ops) -> dict:
     (out of core, chunks of 2^18 rows), 1 Hamming and 2 pool launches;
     churn, compaction and a check against `rebuild_reference()`; snapshot
     and restore serving the same bits."""
-    import shutil
-    import tempfile
 
     from repro_torch.core.lsh import lsh_signature
     from repro_torch.core.nns import out_of_core_nns
@@ -1134,6 +1171,448 @@ def catalog_phase(eng_a, eng_b, inputs, seed: int, ops, card: str) -> dict:
           f"{f3['open_s']:.3f} s, compaction {f3['compact_s']:.3f} s; "
           f"phase F took {f['seconds']:.1f} s", flush=True)
     return f
+
+
+# ---------------------------------------------------------------------------
+# phase G: training and train-while-serve
+# ---------------------------------------------------------------------------
+class Killed(Exception):
+    """A hard fault of G.5's loop (not one `TrainLoop` retries)."""
+
+
+def counted(fn, ops):
+    """fn() with the kernels' launches counted over exactly that call ->
+    (result, launches)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def timed_steps(step, state, batches):
+    """Run `step` over `batches` from `state`, synchronizing after each ->
+    (state, losses, host ms a step)."""
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return state, torch.stack(losses).cpu().tolist(), ms
+
+
+def step_summary(losses, ms) -> dict:
+    return {"first_loss": losses[0], "last_loss": losses[-1],
+            "ms_per_step": statistics.median(ms), "steps": len(losses)}
+
+
+def offline_training(data, cfg, device, seed: int) -> dict:
+    """G.1: 400 filtering steps of `make_recsys_train_step` (batch 256),
+    then 200 AdamW ranking steps (batch 128, 16 candidates), from
+    `init_youtubednn` on a seeded CUDA generator."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import training
+    from repro_torch.models import recsys as rs
+
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    params = rs.init_youtubednn(gen, cfg, device)
+    step = training.make_recsys_train_step(cfg)
+    state = training.init_recsys_train_state(params, device)
+    batches = list(synthetic.movielens_batches(data, G_BATCH, G_FILTER_STEPS))
+    state, f_losses, f_ms = timed_steps(step, state, batches)
+    check(f_losses[-1] < f_losses[0] - 0.5,
+          f"G.1: filtering loss {f_losses[0]:.4f} -> {f_losses[-1]:.4f} did "
+          f"not fall by 0.5")
+    prof = device_profile(lambda: step(state, batches[0]))
+    rank = training.make_loss_step(lambda p, b: rs.ranking_loss(p, cfg, b))
+    state, r_losses, r_ms = timed_steps(
+        rank, training.init_recsys_train_state(state.params, device),
+        synthetic.movielens_rank_batches(data, G_RANK_BATCH, G_CANDS,
+                                         G_RANK_STEPS))
+    check(all(np.isfinite(r_losses)), "G.1: ranking loss not finite")
+    return {"params": state.params,
+            "filter": step_summary(f_losses, f_ms),
+            "rank": step_summary(r_losses, r_ms),
+            "profile": {k: prof[k] for k in ("kernels", "device_ms",
+                                             "wall_ms", "idle_share", "top")}}
+
+
+def accuracy(engine, data, ops) -> dict:
+    """G.2: HR@10 over every user in the paper's three configurations,
+    with the reference's ordering checks (`tests/test_recsys_pipeline.py`
+    `test_accuracy_ordering_fp32_int8_lsh`)."""
+    from repro_torch.serving.recsys_engine import hit_rate
+
+    def run():
+        return {mode: hit_rate(engine, data, k=10, mode=mode)
+                for mode in ("fp32", "int8", "lsh")}
+
+    hr, launches = counted(run, ops)
+    chance = 10 / data.n_items
+    check(hr["fp32"] > 1.2 * chance,
+          f"G.2: HR@10 fp32 {hr['fp32']:.4f} not above 1.2x chance")
+    check(abs(hr["fp32"] - hr["int8"]) < 0.02,
+          f"G.2: HR@10 int8 {hr['int8']:.4f} vs fp32 {hr['fp32']:.4f}")
+    check(hr["lsh"] <= hr["int8"] + 0.01,
+          f"G.2: HR@10 lsh {hr['lsh']:.4f} beats int8 {hr['int8']:.4f}")
+    return {"hr": hr, "chance": chance, "launches": launches}
+
+
+def serve_rounds(server, queries, stop) -> tuple[list, list]:
+    """Serve `queries` through `server` round after round until `stop()`
+    (checked after each round, so at least one runs) -> (q/s of each
+    round, tickets)."""
+    served, rates = [], []
+    while True:
+        t0 = time.perf_counter()
+        tickets = [server.submit(q) for q in queries]
+        served.extend(server.result(t, timeout=WAIT_S) for t in tickets)
+        rates.append(len(queries) / (time.perf_counter() - t0))
+        if stop():
+            break
+    return rates, served
+
+
+def train_while_serve(engine, data, cfg, ops) -> dict:
+    """G.3 and G.4: an `OnlineTrainer` over a `LiveCatalog` of `engine`,
+    attached to a concurrent front-end, trains on its own thread while the
+    front-end serves; shadow checkpoints; a step without a fold."""
+    from repro_torch.data import synthetic
+    from repro_torch.serving import (
+        LiveCatalog,
+        OnlineTrainer,
+        ShadowHarness,
+        make_server,
+    )
+    from repro_torch.serving.catalog import delta_n_live
+    from repro_torch.utils import tree_leaves
+
+    queries = synthetic.serving_queries(
+        data, np.arange(G_QUERIES) % data.n_users)
+    knobs = dict(max_batch=BATCH, queue_depth=None)
+    # the same queries on the frozen engine, rounds of the same size,
+    # before and after the training window
+    frozen = make_server(engine, "concurrent", **knobs)
+    serve_rounds(frozen, queries, lambda: True)  # warm
+
+    def frozen_qps():
+        rounds = iter(range(G_FROZEN_ROUNDS - 1))
+        return serve_rounds(frozen, queries,
+                            lambda: next(rounds, None) is None)[0]
+
+    frozen_before = frozen_qps()
+
+    cat = LiveCatalog(engine, delta_capacity=cfg.n_items)
+    server = make_server(cat.engine, "concurrent", **knobs)
+    cat.attach(server)
+    trainer = OnlineTrainer(cat, cfg, engine.params, fold_every=1,
+                            compact_every=4)
+    fold_ms, compact_ms = [], []
+    for obj, name, sink in ((trainer, "fold", fold_ms),
+                            (cat, "compact", compact_ms)):
+        setattr(obj, name, timed_call(getattr(obj, name), sink))
+    batches = iter(synthetic.movielens_batches(data, G_BATCH, 10_000,
+                                               seed=11))
+    done, errors = threading.Event(), []
+
+    def train():
+        try:
+            for _ in range(G_ONLINE_STEPS):
+                trainer.step(next(batches))
+        except Exception as e:  # re-raised by the check below
+            errors.append(e)
+        finally:
+            done.set()
+
+    def window():
+        th = threading.Thread(target=train, daemon=True)
+        th.start()
+        out = serve_rounds(server, queries, done.is_set)
+        th.join(timeout=WAIT_S)
+        check(not th.is_alive(), "G.3: the training thread did not end")
+        return out
+
+    (rates, served), launches = counted(window, ops)
+    frozen_after = frozen_qps()
+    frozen.close()
+    check(not errors, f"G.3: training thread failed: {errors!r}")
+    st = server.stats()
+    check(all(s.status == "ok" for s in served) and st["n_errors"] == 0,
+          f"G.3: {st['n_errors']} error tickets, statuses "
+          f"{sorted({s.status for s in served})}")
+    check(trainer.n_folds == G_ONLINE_STEPS and cat.epoch >= 3,
+          f"G.3: {trainer.n_folds} folds, epoch {cat.epoch}")
+    nb = st["n_batches"]
+    check(nb > 0 and launches["embedding_pool"] == 2 * nb
+          and launches["hamming_distances"] == 2 * nb
+          and launches["streaming_nns"] == 0,
+          f"G.3: launches {launches} for {nb} buckets (want 2 pool and 2 "
+          f"Hamming a bucket: base and delta scans)")
+    online = trainer.stats()
+
+    # shadow checkpoints: now, and after 10 more steps, twice
+    shadow = ShadowHarness(trainer, data, k=10, mode="lsh")
+
+    def checkpoints():
+        recs = [shadow.checkpoint()]
+        for _ in range(2):
+            for _ in range(10):
+                trainer.step(next(batches))
+            recs.append(shadow.checkpoint())
+        return recs
+
+    recs, shadow_launches = counted(checkpoints, ops)
+    for rec in recs:
+        check(rec.gap == 0.0 and rec.agree_frac == 1.0,
+              f"G.3: shadow checkpoint at step {rec.step}: gap {rec.gap}, "
+              f"agreement {rec.agree_frac}")
+
+    # G.4: one step without a fold leaves what is served as it was
+    def aliasing():
+        sync = make_server(cat.engine, "sync", max_batch=BATCH)
+        published = cat.engine
+        kept = [t.clone() for t in tree_leaves(published.params)]
+        before = sync.serve_many(queries)
+        trainer.fold_every = 0
+        trainer.step(next(batches))
+        after = sync.serve_many(queries)
+        sync.close()
+        check(cat.engine is published
+              and all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(published.params), kept))
+              and all(np.array_equal(a.items, b.items)
+                      and np.array_equal(a.scores, b.scores)
+                      for a, b in zip(after, before)),
+              "G.4: a step without a fold changed what is served")
+
+    _, alias_launches = counted(aliasing, ops)
+    server.close()
+    out = {"served": len(served), "rounds_training": rates,
+            "rounds_frozen": [frozen_before, frozen_after],
+            "qps_training": statistics.median(rates),
+            "qps_frozen": [statistics.median(frozen_before),
+                           statistics.median(frozen_after)],
+            "buckets": nb, "launches_serving": launches,
+            "launches": add_counts(add_counts(launches, shadow_launches),
+                                   alias_launches),
+            "staleness_ms_mean": online["staleness_ms_mean"],
+            "staleness_ms_p95": online["staleness_ms_p95"],
+            "fold_ms": statistics.median(fold_ms), "n_folds_timed":
+            len(fold_ms), "compact_ms": statistics.median(compact_ms),
+            "n_compactions": len(compact_ms), "epoch": cat.epoch,
+            "rows_folded": online["rows_folded"],
+            "shadow": [rec._asdict() for rec in recs],
+            "last_loss": online["last_loss"]}
+
+    # for phase C: the two states the live engine serves in under
+    # full-softmax folds, its 3,000-slot delta empty (just compacted) and
+    # full (every row re-embedded, its base row tombstoned), and a bucket
+    # of the queries served (six padding rows, as in a tail bucket)
+    cat.compact()
+    empty = cat.engine
+    trainer.compact_every = 0
+    trainer.fold()
+    full = cat.engine
+    check(delta_n_live(empty.delta) == 0
+          and delta_n_live(full.delta) == cfg.n_items == full.delta.capacity,
+          "G.3: the delta is not empty after a compaction and full after a "
+          "fold")
+    out["pool_check"] = {
+        "engines": {"online_empty_": empty, "online_full_": full},
+        "batch": stack_queries(queries[:BATCH - 6], BATCH)}
+    return out
+
+
+def stack_queries(queries: list[dict], bucket: int) -> dict:
+    """Single-user queries as one padded bucket (the batcher's layout:
+    padding rows all -1, `valid` marking the real ones)."""
+    n = len(queries)
+    batch = {k: np.full((bucket, *np.shape(v)), -1, np.int32)
+             for k, v in queries[0].items()}
+    for k in batch:
+        batch[k][:n] = np.stack([np.asarray(q[k], np.int32)
+                                 for q in queries])
+    batch["valid"] = np.arange(bucket) < n
+    return batch
+
+
+def timed_call(fn, sink: list):
+    """`fn` that appends its wall ms (synchronized) to `sink`."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return wrapped
+
+
+def restart(params, data, cfg, device) -> dict:
+    """G.5: a `TrainLoop` of 10 filtering steps checkpointing every 5 (the
+    straggler check off) stops on a hard fault at step 7; the resume from
+    step 5 ends bit-equal to an uninterrupted run."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.distributed import training
+    from repro_torch.utils import tree_leaves, tree_map
+
+    step = training.make_recsys_train_step(cfg)
+
+    def loop_step(state, batch):
+        state, loss = step(state, batch)
+        return state, {"loss": loss}
+
+    def fresh():
+        return training.init_recsys_train_state(
+            tree_map(torch.clone, params), device)
+
+    def leaves(s):
+        return tree_leaves([s.params, s.opt.mu, s.opt.nu, s.opt.count,
+                            s.step])
+
+    policy = ft.FaultPolicy(checkpoint_every=5,
+                            straggler_factor=float("inf"))
+    batches = list(synthetic.movielens_batches(data, G_BATCH, 10, seed=12))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_g5_"))
+    try:
+        t0 = time.perf_counter()
+        ref, _ = ft.TrainLoop(loop_step, Checkpointer(tmp / "ref"),
+                              policy).run(fresh(), iter(batches), 10)
+
+        def bomb(i):
+            if i == 7:
+                raise Killed(f"hard fault at step {i}")
+
+        try:
+            ft.TrainLoop(loop_step, Checkpointer(tmp / "crash"), policy,
+                         fault_hook=bomb).run(fresh(), iter(batches), 10)
+            fail("G.5: the fault at step 7 did not stop the loop")
+        except Killed:
+            pass
+        loop = ft.TrainLoop(loop_step, Checkpointer(tmp / "crash"), policy)
+        state, start = loop.resume_or_init(fresh)
+        check(start == 5, f"G.5: resumed from step {start}, not 5")
+        final, end = loop.run(state, iter(batches[start:]), 10,
+                              start_step=start)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(end == 10 and all(torch.equal(a, b) for a, b in
+                            zip(leaves(final), leaves(ref))),
+          "G.5: the resumed run is not bit-equal to the uninterrupted one")
+    return {"resumed_from": start, "seconds": seconds}
+
+
+def dlrm_training(device, seed: int) -> dict:
+    """G.6: DLRM at its Table I size, 150 AdamW steps on Criteo-like
+    batches of 256; the loss must fall by 0.05."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import training
+    from repro_torch.models import recsys as rs
+    from repro_torch.utils import tree_leaves
+
+    cfg = rs.DLRMConfig()
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    params = rs.init_dlrm(gen, cfg, device)
+    step = training.make_loss_step(lambda p, b: rs.dlrm_loss(p, cfg, b))
+    _, losses, ms = timed_steps(
+        step, training.init_recsys_train_state(params, device),
+        synthetic.make_criteo_batches(G_BATCH, G_DLRM_STEPS,
+                                      cardinality=cfg.cardinality))
+    check(losses[-1] < losses[0] - 0.05,
+          f"G.6: DLRM loss {losses[0]:.4f} -> {losses[-1]:.4f} did not "
+          f"fall by 0.05")
+    return {**step_summary(losses, ms),
+            "n_params": sum(t.numel() for t in tree_leaves(params))}
+
+
+def training_phase(proj, seed: int, device, ops, card: str) -> dict:
+    """Phase G: training and train-while-serve at full width."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.recsys import default_youtubednn_config
+    from repro_torch.serving import RecSysEngine
+
+    t_start = time.perf_counter()
+    cfg = default_youtubednn_config()
+    data = synthetic.make_movielens()  # MovieLens-1M's sizes
+    check(data.n_items == cfg.n_items and data.n_users == 6040,
+          "G: the synthetic set is not MovieLens-1M's size")
+    g = {"G1": offline_training(data, cfg, device, seed)}
+    params = g["G1"].pop("params")
+    freqs = np.bincount(data.histories[data.histories >= 0],
+                        minlength=cfg.n_items)
+    engine = RecSysEngine.build(params, cfg, lsh_proj=proj,
+                                radius=G_RADIUS, n_candidates=G_CANDIDATES,
+                                hot_rows=HOT_ROWS, item_freqs=freqs,
+                                device=device)
+    g["G2"] = accuracy(engine, data, ops)
+    g["G3"] = train_while_serve(engine, data, cfg, ops)
+    g["G5"] = restart(params, data, cfg, device)
+    g["G6"] = dlrm_training(device, seed)
+    g["seconds"] = time.perf_counter() - t_start
+    g["launches"] = add_counts(g["G2"]["launches"], g["G3"]["launches"])
+    for k in ("hamming_distances", "embedding_pool"):
+        check(g["launches"][k] > 0, f"G: {k} never launched")
+    f, r, p = g["G1"]["filter"], g["G1"]["rank"], g["G1"]["profile"]
+    print(f"phase G.1 (YoutubeDNN training at full width, synthetic "
+          f"MovieLens-1M; {card}): {f['steps']} filtering steps of "
+          f"{G_BATCH}, loss {f['first_loss']:.4f} -> {f['last_loss']:.4f}, "
+          f"{f['ms_per_step']:.3f} ms a step; {r['steps']} AdamW ranking "
+          f"steps of {G_RANK_BATCH} x {G_CANDS}, loss "
+          f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}, "
+          f"{r['ms_per_step']:.3f} ms a step; one filtering step profiled: "
+          f"{p['kernels']} device events, {p['device_ms']:.3f} ms on the "
+          f"card in {p['wall_ms']:.3f} ms (idle share {p['idle_share']}), "
+          f"top {p['top'][:3]}", flush=True)
+    hr = g["G2"]["hr"]
+    print(f"phase G.2 (HR@10 over all {data.n_users} users, radius "
+          f"{G_RADIUS}, {G_CANDIDATES} candidates; synthetic data, the "
+          f"paper's 26.8 / 26.2 / 20.8% are on real MovieLens-1M; {card}): "
+          f"fp32 {hr['fp32']:.4f}, int8 {hr['int8']:.4f}, lsh "
+          f"{hr['lsh']:.4f} (chance {g['G2']['chance']:.4f}); launches "
+          f"{g['G2']['launches']}", flush=True)
+    o = g["G3"]
+    print(f"phase G.3 (OnlineTrainer on a LiveCatalog, 3000-slot delta, "
+          f"fold every step, compaction every 4 folds, concurrent "
+          f"front-end; {card}): {G_ONLINE_STEPS} steps while serving "
+          f"{o['served']} queries in {o['buckets']} buckets at "
+          f"{o['qps_training']:.0f} q/s (median of "
+          f"{len(o['rounds_training'])} rounds of {G_QUERIES}, "
+          f"{min(o['rounds_training']):.0f}-{max(o['rounds_training']):.0f};"
+          f" frozen engine, {G_FROZEN_ROUNDS} rounds before / after: "
+          f"{o['qps_frozen'][0]:.0f} / {o['qps_frozen'][1]:.0f} q/s, "
+          f"{min(min(r) for r in o['rounds_frozen']):.0f}-"
+          f"{max(max(r) for r in o['rounds_frozen']):.0f}), no error ticket; "
+          f"{o['rows_folded']}"
+          f" rows folded, {o['fold_ms']:.2f} ms a fold, "
+          f"{o['n_compactions']} compactions of {o['compact_ms']:.2f} ms, "
+          f"epoch {o['epoch']}; staleness mean "
+          f"{o['staleness_ms_mean']:.2f} ms, p95 {o['staleness_ms_p95']:.2f}"
+          f" ms; launches while serving {o['launches_serving']}; shadow "
+          f"checkpoints at steps {[s['step'] for s in o['shadow']]}: gap "
+          f"{[s['gap'] for s in o['shadow']]}, agreement "
+          f"{[s['agree_frac'] for s in o['shadow']]}, HR@10 "
+          f"{[round(s['hr_live'], 4) for s in o['shadow']]}, "
+          f"{[round(s['eval_s'], 3) for s in o['shadow']]} s each", flush=True)
+    print(f"phase G.4: a step without a fold left the served bits and "
+          f"engine.params unchanged; G.5: TrainLoop resumed from step "
+          f"{g['G5']['resumed_from']} after a fault at step 7, bit-equal to "
+          f"the uninterrupted run ({g['G5']['seconds']:.2f} s)", flush=True)
+    d = g["G6"]
+    print(f"phase G.6 (DLRM, Table I: 26 x 28000 x 32, {d['n_params']} "
+          f"params; {card}): {d['steps']} AdamW steps of {G_BATCH}, loss "
+          f"{d['first_loss']:.4f} -> {d['last_loss']:.4f}, "
+          f"{d['ms_per_step']:.3f} ms a step; phase G took "
+          f"{g['seconds']:.1f} s", flush=True)
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -1511,15 +1990,20 @@ def tiered_rank_stage(live_eng, cand, ops):
     return ops.PoolPlan([empty, plan.segments[1]]), [overlay, None]
 
 
-def pool_entry(eng, batch, cand, ops, ref, launches: int, live_eng) -> dict:
+def pool_entry(eng, batch, cand, ops, ref, launches: int, live_eng,
+               online: dict) -> dict:
     """Phase C for the grouped pool kernel, at phase A's lookup and rank
     stages (one launch each, bit-equal to the plain version with equal
     counters); the same stages of F.1's live engine, whose history and
     candidate segments resolve through its 1,024-slot delta as their side
-    table, and the tiered rank stage (a per-call overlay, no base rows);
-    and the single-table public op (genre, history, weighted history;
-    bit-equal). Informative: `F.embedding_bag` over the dequantized f32
-    tables, the library's nearest call (the port never calls it)."""
+    table (searched in shared memory), and of G.3's live engine at a
+    bucket of G.3's queries and its own candidates, in both states it
+    serves in: its 3,000-slot delta empty and full (searched in global
+    memory, past the kernel's shared-memory limit); the tiered rank stage
+    (a per-call overlay, no base rows); and the single-table public op
+    (genre, history, weighted history; bit-equal). Informative:
+    `F.embedding_bag` over the dequantized f32 tables, the library's
+    nearest call (the port never calls it)."""
     from repro_torch.core.quantization import dequantize_rowwise
 
     b = eng.batch_to_device(batch)
@@ -1528,32 +2012,40 @@ def pool_entry(eng, batch, cand, ops, ref, launches: int, live_eng) -> dict:
     B, N = cand.shape
     names = sorted(eng.cfg.user_features)
     tiered_plan, tiered_sides = tiered_rank_stage(live_eng, cand, ops)
+    served = [("", eng, b, cand), ("live_", live_eng, b, cand)]
+    g_batch = online["batch"]
+    for prefix, e in online["engines"].items():
+        served.append((prefix, e, e.batch_to_device(g_batch),
+                       e.serve(g_batch).nns.indices))
     stages = {}
-    for prefix, e in (("", eng), ("live_", live_eng)):
+    for prefix, e, bb, cc in served:
+        Bq, Nq = cc.shape
         stages[prefix + "lookup"] = (
-            e.lookup_plan, [b[k][:, None] for k in names] + [b["history"]],
-            lambda e=e: [torch.empty((B, e.lookup_plan.width),
-                                     device=dev)] * (len(names) + 1), None)
+            e.lookup_plan, [bb[k][:, None] for k in names] + [bb["history"]],
+            lambda e=e, Bq=Bq: [torch.empty((Bq, e.lookup_plan.width),
+                                            device=dev)] * (len(names) + 1),
+            None, bb.get("valid"))
         stages[prefix + "rank"] = (
-            e.rank_plan, [cand, b["genre"][:, None]],
-            lambda e=e: [torch.empty((B, N, e.rank_plan.width), device=dev),
-                         torch.empty((B, e.genre_table_q.values.shape[1]),
-                                     device=dev)], None)
+            e.rank_plan, [cc, bb["genre"][:, None]],
+            lambda e=e, Bq=Bq, Nq=Nq: [
+                torch.empty((Bq, Nq, e.rank_plan.width), device=dev),
+                torch.empty((Bq, e.genre_table_q.values.shape[1]),
+                            device=dev)], None, bb.get("valid"))
     stages["tiered_rank"] = (tiered_plan, [cand, b["genre"][:, None]],
-                             stages["live_rank"][2], tiered_sides)
+                             stages["live_rank"][2], tiered_sides, valid)
     out = {}
-    for name, (plan, ids, new_outs, sides) in stages.items():
+    for name, (plan, ids, new_outs, sides, vmask) in stages.items():
         got, want = new_outs(), new_outs()
         for o in got + want:
             o.fill_(-7.0)
-        c_got = plan.launch(ids, got, valid, sides=sides)
-        c_want = ref.grouped_pool_ref(plan.segments, ids, want, valid,
+        c_got = plan.launch(ids, got, vmask, sides=sides)
+        c_want = ref.grouped_pool_ref(plan.segments, ids, want, vmask,
                                       sides=sides)
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"grouped pool ({name} stage) != plain")
         check(torch.equal(c_got, c_want),
               f"grouped pool ({name} stage) counters != plain")
-        bnd, by = bound(*pool_stage_bytes_ops(plan, ids, valid, sides))
+        bnd, by = bound(*pool_stage_bytes_ops(plan, ids, vmask, sides))
         outs = new_outs()
         side_of = [seg.side if sides is None or sides[i] is None
                    else sides[i] for i, seg in enumerate(plan.segments)]
@@ -1564,12 +2056,12 @@ def pool_entry(eng, batch, cand, ops, ref, launches: int, live_eng) -> dict:
                 + ("" if sd is None else
                    f" + side table of {sd.ids.shape[0]}")
                 for seg, x, sd in zip(plan.segments, ids, side_of)),
-            "ms": timed_ms(lambda: plan.launch(ids, outs, valid,
+            "ms": timed_ms(lambda: plan.launch(ids, outs, vmask,
                                                sides=sides), 200),
             "call_ms": call_ms(lambda: ops.grouped_pool(
-                plan, ids, outs, valid, sides=sides), 200),
+                plan, ids, outs, vmask, sides=sides), 200),
             "plain_ms": timed_ms(lambda: ref.grouped_pool_ref(
-                plan.segments, ids, outs, valid, sides=sides), 20),
+                plan.segments, ids, outs, vmask, sides=sides), 20),
             "bound_ms": bnd, "bound_by": by,
             "counters": [int(c) for c in c_got]}
 
@@ -1812,6 +2304,10 @@ def main(argv=None) -> int:
     cat_f = catalog_phase(eng_a, eng_b, inputs, args.seed, ops, card)
     torch.cuda.empty_cache()
 
+    # -- phase G: training and train-while-serve at full width -------------
+    train = training_phase(proj, args.seed, device, ops, card)
+    torch.cuda.empty_cache()
+
     # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
     lm_rec, int8_operands = lm_phase(args.seed, device, ops)
     torch.cuda.empty_cache()
@@ -1853,7 +2349,8 @@ def main(argv=None) -> int:
         ref, a["launches"]["hamming_distances"]
         + b["launches"]["hamming_distances"]
         + e["launches"]["hamming_distances"]
-        + cat_f["launches"]["hamming_distances"]))
+        + cat_f["launches"]["hamming_distances"]
+        + train["launches"]["hamming_distances"]))
 
     # embedding pool: the lookup and rank stages' segment lists of phase A
     # (one grouped launch each), and the single-table public op
@@ -1861,7 +2358,9 @@ def main(argv=None) -> int:
         eng_a, batches_a[0], a["results"][0].nns.indices, ops, ref,
         a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]
         + e["launches"]["embedding_pool"]
-        + cat_f["launches"]["embedding_pool"], cat_f.pop("live_engine")))
+        + cat_f["launches"]["embedding_pool"]
+        + train["launches"]["embedding_pool"], cat_f.pop("live_engine"),
+        train["G3"].pop("pool_check")))
 
     # streaming NNS at phase B's shapes: 256 queries x 1,048,576 items
     qb = lsh_signature(eng_b.user_embedding(batches_b[0]), eng_b.lsh_proj)
@@ -1919,7 +2418,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/streaming_nns.py:346",
         "launches": a["launches"]["streaming_nns"]
         + b["launches"]["streaming_nns"] + e["launches"]["streaming_nns"]
-        + cat_f["launches"]["streaming_nns"],
+        + cat_f["launches"]["streaming_nns"]
+        + train["launches"]["streaming_nns"],
         "max_abs_err": 0.0,
         "ms": timed_ms(lambda: ops.streaming_nns_cuda(
             qb, db_b, **kw, **variants["pruned"]), 20),
@@ -1963,7 +2463,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_e=e,
-                  phase_f=cat_f,
+                  phase_f=cat_f, phase_g=train,
                   kernels=kernels,
                   device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,11 @@ A second package beside the JAX reference (`repro`). It serves the
 YoutubeDNN engine end to end (`serving.recsys_engine.RecSysEngine.build`
 -> `serve` / `filter_stage` / `rank_stage`), frozen or over a live
 catalog (`serving.catalog.LiveCatalog`) or a tiered out-of-core one
-(`serving.tiered.TieredCatalog`), and the dense LM family
+(`serving.tiered.TieredCatalog`); trains YoutubeDNN and DLRM
+(`models.recsys` losses, `optim.adamw`, `distributed.training`,
+`distributed.fault_tolerance.TrainLoop`) and keeps a live catalog fresh
+while it serves (`serving.online.OnlineTrainer`, checked by
+`serving.shadow.ShadowHarness`); and serves the dense LM family
 (`serving.engine`: `prefill`, `decode_step`, `LMServingEngine.generate`;
 `launch.serve` is its CLI). Every TPU kernel of the reference has a CUDA
 C++ counterpart under `kernels/csrc` — dense Hamming distances, the

@@ -5,22 +5,52 @@ the parameters, the LSH projection and the built engine's arrays from the
 reference as numpy arrays (the exporter that calls `np.asarray` on a
 `repro` engine lives in the tests). Packed signatures may come as uint32;
 they are viewed as int32 holding the same bits. bfloat16 leaves (numpy's
-`ml_dtypes.bfloat16`) arrive as bfloat16 tensors with the same bits.
+`ml_dtypes.bfloat16`) arrive as bfloat16 tensors with the same bits. A
+reference `TrainState` (parameters, AdamW moments with int8 `QuantState`
+leaves, count and step) carries across the same way
+(`train_state_from_numpy`), so a port trainer continues from the
+reference's optimizer state.
 """
 from __future__ import annotations
 
 from repro_torch.core.nns import BlockSummary
 from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.distributed.training import TrainState
 from repro_torch.models.recsys import YoutubeDNNConfig
+from repro_torch.optim.adamw import AdamWState, QuantState
 from repro_torch.serving.hot_cache import HotRowCache
 from repro_torch.serving.recsys_engine import RecSysEngine
-from repro_torch.utils import resolve_device, to_device
+from repro_torch.utils import resolve_device, to_device, tree_map
 
 
 def params_from_numpy(tree, device=None):
     """The reference's parameter pytree (dicts/lists of numpy arrays) as
     the same structure of tensors on `device` (default `cuda`)."""
     return to_device(tree, resolve_device(device))
+
+
+def _moment(leaf, device):
+    """One optimizer-moment leaf on `device`: an array, or an int8
+    `QuantState`-like object (``values`` and ``scales`` attributes)."""
+    if hasattr(leaf, "scales"):
+        return QuantState(values=to_device(leaf.values, device),
+                          scales=to_device(leaf.scales, device))
+    return to_device(leaf, device)
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """A reference `TrainState` (attributes ``params``, ``opt`` with
+    ``mu``, ``nu`` and ``count``, and ``step``; leaves numpy or anything
+    `np.array` takes) as the port's, on `device` (default `cuda`). int8
+    moments arrive as `QuantState`s, bfloat16 ones with the same bits."""
+    device = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=AdamWState(mu=tree_map(lambda x: _moment(x, device), opt.mu),
+                       nu=tree_map(lambda x: _moment(x, device), opt.nu),
+                       count=to_device(opt.count, device)),
+        step=to_device(state.step, device))
 
 
 # an LM tree of `repro`'s `models/transformer.py` `init_params` (stacked

@@ -1,1 +1,2 @@
-"""Model definitions of the port (inference only)."""
+"""Model definitions of the port: the dense LM family and the paper's
+RecSys models (YoutubeDNN, DLRM), with their training losses."""

@@ -12,8 +12,10 @@ traffic into any of them. `LiveCatalog` versions the item catalog with a
 bounded delta shard, tombstones and epoch compaction, serving the same
 bits as an engine rebuilt from scratch while the catalog churns;
 `TieredCatalog` serves a memmapped base shard through an int8 RAM pool
-and the f32 hot cache. Names follow `repro.serving`; its online and
-shadow parts are not ported yet.
+and the f32 hot cache. `OnlineTrainer` trains the filtering model while
+the catalog serves and folds its item rows in; `ShadowHarness` holds the
+live engine against a cold rebuild of the trainer's parameters
+(`rebuild_from_params`). Names follow `repro.serving`.
 """
 from repro_torch.serving.async_server import AsyncServer
 from repro_torch.serving.batcher import (
@@ -57,6 +59,12 @@ from repro_torch.serving.hot_cache import (
     pin_rows,
     top_ids_by_freq,
 )
+from repro_torch.serving.online import OnlineTrainer
+from repro_torch.serving.shadow import (
+    ShadowHarness,
+    ShadowRecord,
+    rebuild_from_params,
+)
 from repro_torch.serving.tiered import (
     BaseShard,
     BaseShardWriter,
@@ -92,6 +100,7 @@ __all__ = [
     "LoadGen",
     "LoadSummary",
     "MicroBatcher",
+    "OnlineTrainer",
     "QueueFullError",
     "RecSysEngine",
     "SchemaMismatchError",
@@ -101,6 +110,8 @@ __all__ = [
     "ServerClosedError",
     "ServerConfigError",
     "ServingError",
+    "ShadowHarness",
+    "ShadowRecord",
     "TicketTrace",
     "TieredCatalog",
     "build_hot_cache",
@@ -121,6 +132,7 @@ __all__ = [
     "pin_rows",
     "rank_stage_step",
     "rank_step",
+    "rebuild_from_params",
     "rebuild_reference",
     "scan_step",
     "serve_step",

@@ -55,3 +55,28 @@ def to_device(tree, device):
         else:
             tree = torch.from_numpy(a)
     return tree.to(device)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples in the order of
+    `jax.tree_util.tree_leaves`: dict keys sorted, sequences in order;
+    None is an empty subtree."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` and the matching subtrees of `rest`,
+    which follow `tree`'s structure down to its leaves and may hold any
+    object there (`flatten_up_to`: an optimizer state's `QuantState`
+    beside a parameter). Dicts come back with sorted keys, as JAX's do."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)

@@ -30,11 +30,19 @@ from repro_torch.core.nns import (
     build_block_summary,
     fixed_radius_nns,
 )
+from repro_torch.distributed import training
 from repro_torch.kernels import build, ops, ref
 from repro_torch.data import synthetic
 from repro_torch.models.recsys import default_youtubednn_config
-from repro_torch.serving import make_server
+from repro_torch.serving import (
+    LiveCatalog,
+    OnlineTrainer,
+    ShadowHarness,
+    make_server,
+    rebuild_from_params,
+)
 from repro_torch.serving import recsys_engine as trs
+from repro_torch.utils import tree_leaves
 
 pytestmark = pytest.mark.cuda
 POOL_RTOL = 1e-6
@@ -888,3 +896,113 @@ def test_live_pipelined_dispatch_never_waits_on_the_host(cuda):
     server._dispatch = checked
     _served_equal(server.serve_many(queries), want)
     assert server.stats()["n_errors"] == 0
+
+
+# ---------------------------------------------------------------------------
+# training and train-while-serve on the card
+# ---------------------------------------------------------------------------
+def _train_setup(n_items=300):
+    data = synthetic.make_movielens(n_users=200, n_items=n_items,
+                                    history_len=8)
+    cfg = default_youtubednn_config()._replace(
+        n_items=n_items, history_len=8,
+        user_features={"user_id": data.n_users, "gender": 3, "age": 7,
+                       "occupation": 21, "zip_bucket": 250})
+    params = _numpy_params(cfg, np.random.default_rng(7))
+    return data, cfg, params
+
+
+def _run_steps(cfg, params, batches, device):
+    state = training.init_recsys_train_state(params, device)
+    step = training.make_recsys_train_step(cfg)
+    losses = []
+    for b in batches:
+        state, loss = step(state, b)
+        losses.append(loss)
+    return state, torch.stack(losses).cpu()
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Five steps on the card and on the CPU from the same parameters:
+    losses within rtol 1e-5, parameters within 1e-6 in all but 0.1% of
+    entries and within 5e-5 everywhere. cuBLAS and the CPU sum the
+    gradients in other orders, and AdamW's g / (sqrt(v) + eps) moves by up
+    to a few percent of lr where a gradient entry is near eps (1e-8)."""
+    data, cfg, params = _train_setup()
+    batches = list(synthetic.movielens_batches(data, 64, 5))
+    gpu, gpu_loss = _run_steps(cfg, params, batches, cuda)
+    cpu, cpu_loss = _run_steps(cfg, params, batches, "cpu")
+    np.testing.assert_allclose(gpu_loss.numpy(), cpu_loss.numpy(),
+                               rtol=1e-5)
+    got = torch.cat([t.cpu().ravel() for t in tree_leaves(gpu.params)])
+    want = torch.cat([t.ravel() for t in tree_leaves(cpu.params)])
+    diff = (got - want).abs()
+    assert (diff > 1e-6).float().mean() <= 0.001 and diff.max() <= 5e-5
+
+
+def test_train_step_is_deterministic_on_the_card(cuda):
+    """Two runs of the same steps end in the same bits (the embedding
+    gathers' backward scatter-adds the history and logits gradients into
+    the item table), and the step queues without a host sync."""
+    data, cfg, params = _train_setup()
+    batches = [training.batch_to_device(b, cuda) for b in
+               synthetic.movielens_batches(data, 256, 6)]
+    torch.cuda.synchronize()
+    a, la = _run_steps(cfg, params, batches, cuda)
+    b, lb = _run_steps(cfg, params, batches, cuda)
+    assert torch.equal(la, lb)
+    for x, y in zip(tree_leaves([a.params, a.opt.mu, a.opt.nu]),
+                    tree_leaves([b.params, b.opt.mu, b.opt.nu])):
+        assert torch.equal(x, y)
+    step = training.make_recsys_train_step(cfg)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, loss = step(a, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss).item()
+
+
+def _online_setup(device, fold_every):
+    data, cfg, params = _train_setup()
+    rng = np.random.default_rng(8)
+    proj = torch.from_numpy(rng.standard_normal((32, 256))
+                            .astype(np.float32))
+    eng = trs.RecSysEngine.build(params, cfg, lsh_proj=proj, radius=112,
+                                 n_candidates=32, hot_rows=64,
+                                 device=device)
+    cat = LiveCatalog(eng, delta_capacity=cfg.n_items)
+    return data, cat, OnlineTrainer(cat, cfg, params, fold_every=fold_every,
+                                    compact_every=3)
+
+
+def test_step_without_fold_changes_nothing_served_on_the_card(cuda):
+    data, cat, trainer = _online_setup(cuda, fold_every=0)
+    server = make_server(cat.engine, "pipelined", max_batch=SERVE_BATCH,
+                         depth=2)
+    cat.attach(server)
+    queries = synthetic.serving_queries(data, np.arange(100))
+    published = cat.engine
+    params_before = [t.clone() for t in tree_leaves(published.params)]
+    before = server.serve_many(queries)
+    trainer.step(next(synthetic.movielens_batches(data, 64, 1)))
+    assert cat.engine is published
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(published.params), params_before))
+    _served_equal(server.serve_many(queries), before)
+
+
+def test_shadow_gap_is_zero_after_folds_on_the_card(cuda):
+    data, cat, trainer = _online_setup(cuda, fold_every=1)
+    shadow = ShadowHarness(trainer, data, k=10, probe_batch=128)
+    for b in synthetic.movielens_batches(data, 64, 7):
+        trainer.step(b)
+    rec = shadow.checkpoint()
+    assert rec.gap == 0.0 and rec.agree_frac == 1.0
+    assert cat.epoch == 2 and trainer.n_folds == 8
+    queries = synthetic.serving_queries(data, np.arange(100))
+    _served_equal(
+        make_server(cat.engine, "sync", max_batch=SERVE_BATCH
+                    ).serve_many(queries),
+        make_server(rebuild_from_params(cat.engine, trainer.params), "sync",
+                    max_batch=SERVE_BATCH).serve_many(queries))
