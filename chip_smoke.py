@@ -95,7 +95,25 @@
    check) stopped by a hard fault at step 7 resumes from step 5 and ends
    bit-equal to an uninterrupted run. G.6: DLRM at its Table I size, 150
    AdamW steps of 256: the loss must fall by 0.05.
-8. Phase C: each kernel against its plain version on the card at the
+8. Phase H: the multi-GPU RecSys plans (`RecSysEngine.shard`, the mesh
+   plans of `core/nns.py`, `core/hierarchy.py`). H.1: a world-size-1 NCCL
+   group (`file://` rendezvous in a temporary directory, removed at the
+   end); phase A's and B's engines, sharded over the banks, over a query
+   axis and over a 1 x 1 grid of both, serve their batches bit-equal to
+   the unsharded engines (items, scores, NNS, blocks touched, cache
+   counters) with the same launches; a LiveCatalog update batch and a
+   compaction (which re-shards onto the mesh) on the grid engine, each
+   bit-equal to `rebuild_reference()`. H.2: banks on one card with no
+   collective: phase B's 1,048,576 rows as 4 pruned banks of 262,144
+   (whole 4,096-row summary blocks) and phase A's 3,000 rows as 3 and as
+   7 dense banks (7 pad the rows), each bank through `bank_scan`, then
+   `merge_banks`: bit-equal to the local plan and to the plain versions,
+   the ms of each bank's scan beside the one full-catalog scan; and
+   `sharded_embedding_bag`'s decomposition over 4 banks of phase A's item
+   table on the pool kernel, bit-equal to the plain versions and within
+   1e-6 of the one-table pool. H.1's launches count in the kernel table;
+   H.2's are comparisons and do not.
+9. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -123,7 +141,7 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, D, C in that order. Prints one line per phase (phase E's
+Runs A, B, E, F, G, H, D, C in that order. Prints one line per phase (phase E's
 and F's with the card's name and power limit), one line per kernel, the card's
 name and power limit as `nvidia-smi` gives them, a `kernels` JSON line,
 and last `{"ok": true, "device": {...}}`; `--record PATH` also writes
@@ -1616,6 +1634,252 @@ def training_phase(proj, seed: int, device, ops, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase H: the multi-GPU RecSys plans at world size 1, and banks on one card
+# ---------------------------------------------------------------------------
+def mesh_serves(phases: dict, meshes: dict, ops) -> tuple[dict, dict]:
+    """H.1: phase A's and B's engines, sharded over each mesh, serve their
+    batches bit-equal to the unsharded engine's results (blocks touched
+    included), with the same launches -> (record, launches)."""
+    rec, total = {}, None
+    for name, (eng, batches, local) in phases.items():
+        # the unsharded engine's time beside the shardings', in turns
+        rec[f"{name}_local_ms"] = [counted_serves(eng.serve, batches,
+                                                  ops)[2]]
+        for mname, (mesh, axis, qaxis) in meshes.items():
+            t0 = time.perf_counter()
+            sharded = eng.shard(mesh, axis, query_axis=qaxis)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            sharded.serve(batches[0])  # warm-up
+            res, lc, ms = counted_serves(sharded.serve, batches, ops)
+            check(lc == local["launches"],
+                  f"H.1 {name} {mname}: launches {lc} != the local plan's "
+                  f"{local['launches']}")
+            for i, (g, w) in enumerate(zip(res, local["results"])):
+                same_serve(g, w, f"H.1 {name} {mname}, batch {i}")
+            rec[f"{name}_{mname}"] = {"ms_per_batch": ms, "shard_s": shard_s,
+                                      "rows_held": sharded.item_sigs.shape[0]}
+            total = lc if total is None else add_counts(total, lc)
+        rec[f"{name}_local_ms"].append(counted_serves(eng.serve, batches,
+                                                      ops)[2])
+    return rec, total
+
+
+def mesh_live(eng_a, batches, mesh, seed: int, ops) -> tuple[dict, dict]:
+    """H.1: one LiveCatalog update batch and a compaction on phase A's
+    engine sharded over the 1 x 1 grid, each serving bit-equal to
+    `rebuild_reference()` -> (record, launches)."""
+    from repro_torch.serving import LiveCatalog
+
+    rng = np.random.default_rng(seed + 11)
+    n, d = eng_a.item_table_q.values.shape
+    cat = LiveCatalog(eng_a.shard(mesh, "banks", query_axis="qp"),
+                      delta_capacity=64)
+    hot = eng_a.item_hot.hot_ids.cpu().numpy()
+    ids = np.r_[np.arange(n, n + 16), hot[:4], [10, 20]]
+    cat.upsert(ids, rng.standard_normal((len(ids), d)).astype(np.float32))
+    cat.delete(np.array([5, 17, n + 3]))
+    live, lc, _ = counted_serves(cat.engine.serve, batches, ops)
+    ref = cat.rebuild_reference()
+    check(ref.nns_mesh is None, "H.1: rebuild_reference() is sharded")
+    for i, (g, b) in enumerate(zip(live, batches)):
+        same_serve(g, ref.serve(b), f"H.1 live update, batch {i}")
+    compact_s = cat.compact()
+    check(cat.engine.nns_mesh is mesh and cat.engine.nns_axis == "banks",
+          "H.1: the compaction did not re-shard onto the mesh")
+    live2, lc2, _ = counted_serves(cat.engine.serve, batches, ops)
+    ref = cat.rebuild_reference()
+    for i, (g, b) in enumerate(zip(live2, batches)):
+        same_serve(g, ref.serve(b), f"H.1 compacted, batch {i}")
+    return ({"n_items": cat.n_items, "epoch": cat.epoch,
+             "compact_s": compact_s}, add_counts(lc, lc2))
+
+
+def bank_split(qs, sigs, radius: int, k: int, n_banks: int, summary, ops,
+               what: str) -> dict:
+    """H.2: `n_banks` banks of `sigs` on one card, no collective: each
+    bank's `bank_scan` (its rows, its summary blocks when `summary`), then
+    `merge_banks`; bit-equal to the local plan over every row and to the
+    same decomposition on the plain versions. -> ms of each bank's scan and
+    of the one full-catalog scan."""
+    from repro_torch.core import nns
+    from repro_torch.utils import bank_slice
+
+    n = sigs.shape[0]
+    banks = [bank_slice(sigs, n_banks, b) for b in range(n_banks)]
+    per = banks[0].shape[0]
+    sums = [None] * n_banks
+    if summary is not None:
+        nb = per // summary.block_rows
+        check(per % summary.block_rows == 0, f"{what}: banks not aligned")
+        sums = [nns.BlockSummary(
+            *(x[b * nb:(b + 1) * nb] for x in (
+                summary.or_sigs, summary.and_sigs, summary.min_pc,
+                summary.max_pc, summary.n_alive)),
+            block_rows=summary.block_rows) for b in range(n_banks)]
+
+    def scan(b):
+        return nns.bank_scan(qs, banks[b], radius, k, bank=b, n_valid=n,
+                             summary=sums[b])
+
+    def full():
+        return nns.fixed_radius_nns(qs, sigs, radius, k, summary=summary)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = nns.merge_banks([scan(b) for b in range(n_banks)], k)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with plain_versions():
+        plain = nns.merge_banks([scan(b) for b in range(n_banks)], k)
+    want = full()
+    for f in ("indices", "distances", "counts", "blocks_touched"):
+        a, b, p = (getattr(r, f) for r in (got, want, plain))
+        check((a is None) == (b is None) == (p is None)
+              and (a is None or (torch.equal(a, b) and torch.equal(a, p))),
+              f"{what}: merged banks' {f} differ from the local plan or "
+              f"the plain versions")
+    check(int(got.counts.sum()) > 0, f"{what}: no candidate")
+    return {"banks": n_banks, "rows_a_bank": per, "launches": launches,
+            "bank_ms": [timed_ms(lambda b=b: scan(b), 10)
+                        for b in range(n_banks)],
+            "full_ms": timed_ms(full, 10)}
+
+
+def bank_bags(eng_a, batch, mesh, ops) -> dict:
+    """H.2: `sharded_embedding_bag`'s decomposition over 4 banks of phase
+    A's item table on one card (each bank's `bank_bag` on the pool kernel,
+    then `tree_sum`): bit-equal to the same on the plain versions, within
+    1e-6 of the one-table pool; and the NCCL mesh's bag over one bank
+    bit-equal to the one-table pool."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.quantization import QuantizedTensor
+    from repro_torch.utils import bank_slice
+
+    table = eng_a.item_table_q
+    ids = eng_a.batch_to_device(batch)["history"]
+    tabs = [QuantizedTensor(values=bank_slice(table.values, 4, b),
+                            scales=bank_slice(table.scales, 4, b))
+            for b in range(4)]
+
+    def bag():
+        return hierarchy.tree_sum(torch.stack(
+            [hierarchy.bank_bag(tabs[b], ids, b) for b in range(4)]))
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = bag()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with plain_versions():
+        plain = bag()
+    whole = ops.embedding_pool(table.values, table.scales, ids)
+    err = float((got - whole).abs().max())
+    check(torch.equal(got, plain), "H.2 bag: the banks' kernel launches "
+                                   "differ from the plain versions")
+    check(err <= 1e-6, f"H.2 bag: {err} from the one-table pool")
+    one = hierarchy.sharded_embedding_bag(mesh, "banks", table, ids)
+    check(torch.equal(one, whole), "H.2: the one-bank mesh bag differs")
+    return {"launches": launches, "max_abs_err_vs_one_table": err,
+            "bank_ms": timed_ms(bag, 10), "one_table_ms": timed_ms(
+                lambda: ops.embedding_pool(table.values, table.scales, ids),
+                10)}
+
+
+def mesh_phase(eng_a, eng_b, inputs, a, b, seed: int, ops,
+               card: str) -> dict:
+    """Phase H: the multi-GPU RecSys plans over NCCL at world size 1
+    (H.1) and banks on one card without a collective (H.2)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.lsh import lsh_signature
+    from repro_torch.utils import all_gather_axis, make_mesh
+
+    t_start = time.perf_counter()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rdv}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    h = {}
+    try:
+        meshes = {"banks": (make_mesh((1,), ("banks",)), "banks", None),
+                  "qp": (make_mesh((1,), ("qp",)), None, "qp"),
+                  "grid": (make_mesh((1, 1), ("qp", "banks")), "banks",
+                           "qp")}
+        batches_a, batches_b = (inputs["A"]["batches"],
+                                inputs["B"]["batches"])
+        h["H1"], launches = mesh_serves(
+            {"A": (eng_a, batches_a, a), "B": (eng_b, batches_b, b)},
+            meshes, ops)
+        h["H1"]["live"], lc = mesh_live(eng_a, batches_a[:2],
+                                        meshes["grid"][0], seed, ops)
+        h["launches"] = add_counts(launches, lc)
+        # the collective glue alone: one all-gather of a packed (256, 2K +
+        # 1) candidate buffer, wall time a call
+        packed = torch.zeros((BATCH, 2 * eng_a.n_candidates + 1),
+                             dtype=torch.int32, device=eng_a.device)
+        h["H1"]["gather_call_ms"] = call_ms(
+            lambda: all_gather_axis(packed, meshes["banks"][0], "banks"), 50)
+
+        qa = lsh_signature(eng_a.user_embedding(batches_a[0]),
+                           eng_a.lsh_proj)
+        qb = lsh_signature(eng_b.user_embedding(batches_b[0]),
+                           eng_b.lsh_proj)
+        h["H2"] = {
+            "B_4_banks": bank_split(qb, eng_b.item_sigs, eng_b.radius,
+                                    eng_b.n_candidates, 4,
+                                    eng_b.block_summary, ops,
+                                    "H.2 B, 4 banks"),
+            **{f"A_{w}_banks": bank_split(
+                qa, eng_a.item_sigs, eng_a.radius, eng_a.n_candidates, w,
+                None, ops, f"H.2 A, {w} banks") for w in (3, 7)},
+            "bag_4_banks": bank_bags(eng_a, batches_a[0],
+                                     meshes["banks"][0], ops)}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    h["seconds"] = time.perf_counter() - t_start
+    h1 = h["H1"]
+    print(f"phase H.1 (NCCL, world size 1; {card}): sharded as banks / qp "
+          f"/ 1 x 1 grid, bit-equal to the unsharded engines with the same "
+          f"launches; ms a batch of {BATCH}: A "
+          + " / ".join(f"{h1['A_' + m]['ms_per_batch']:.3f}" for m in meshes)
+          + " (unsharded, before / after: " + " / ".join(
+              f"{x:.3f}" for x in h1["A_local_ms"]) + "), B "
+          + " / ".join(f"{h1['B_' + m]['ms_per_batch']:.3f}" for m in meshes)
+          + " (unsharded " + " / ".join(
+              f"{x:.3f}" for x in h1["B_local_ms"]) + "); shard() of B "
+          + " / ".join(f"{h1['B_' + m]['shard_s']:.2f}" for m in meshes)
+          + f" s; live update and compaction on the grid engine bit-equal "
+          f"to rebuild_reference() ({h1['live']['n_items']} items, epoch "
+          f"{h1['live']['epoch']}, compaction {h1['live']['compact_s']:.3f}"
+          f" s); one NCCL all-gather of a packed candidate buffer "
+          f"{h1['gather_call_ms']:.4f} ms a call; launches "
+          f"{h['launches']}", flush=True)
+    for key, v in h["H2"].items():
+        if key.startswith("bag"):
+            err = v["max_abs_err_vs_one_table"]
+            print(f"phase H.2 bag over 4 banks of A's item table ({card}): "
+                  f"bit-equal to the plain versions, {err:.3g} from the "
+                  f"one-table pool; "
+                  f"{v['bank_ms']:.4f} ms (4 bank launches + tree) vs "
+                  f"{v['one_table_ms']:.4f} ms one table; launches "
+                  f"{v['launches']}", flush=True)
+        else:
+            print(f"phase H.2 {key.replace('_', ' ')} of {v['rows_a_bank']} "
+                  f"rows ({card}): merged bit-equal to the local plan and "
+                  f"the plain versions; ms a bank "
+                  f"{[round(x, 4) for x in v['bank_ms']]} vs "
+                  f"{v['full_ms']:.4f} ms for the one full-catalog scan; "
+                  f"launches {v['launches']}", flush=True)
+    print(f"phase H took {h['seconds']:.2f} s", flush=True)
+    return h
+
+
+# ---------------------------------------------------------------------------
 # phase D: Qwen3-8B prefill and decode
 # ---------------------------------------------------------------------------
 def synced_ms(fn):
@@ -2308,6 +2572,9 @@ def main(argv=None) -> int:
     train = training_phase(proj, args.seed, device, ops, card)
     torch.cuda.empty_cache()
 
+    # -- phase H: the multi-GPU plans at world size 1, banks on one card ----
+    mesh = mesh_phase(eng_a, eng_b, inputs, a, b, args.seed, ops, card)
+
     # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
     lm_rec, int8_operands = lm_phase(args.seed, device, ops)
     torch.cuda.empty_cache()
@@ -2350,7 +2617,8 @@ def main(argv=None) -> int:
         + b["launches"]["hamming_distances"]
         + e["launches"]["hamming_distances"]
         + cat_f["launches"]["hamming_distances"]
-        + train["launches"]["hamming_distances"]))
+        + train["launches"]["hamming_distances"]
+        + mesh["launches"]["hamming_distances"]))
 
     # embedding pool: the lookup and rank stages' segment lists of phase A
     # (one grouped launch each), and the single-table public op
@@ -2359,7 +2627,8 @@ def main(argv=None) -> int:
         a["launches"]["embedding_pool"] + b["launches"]["embedding_pool"]
         + e["launches"]["embedding_pool"]
         + cat_f["launches"]["embedding_pool"]
-        + train["launches"]["embedding_pool"], cat_f.pop("live_engine"),
+        + train["launches"]["embedding_pool"]
+        + mesh["launches"]["embedding_pool"], cat_f.pop("live_engine"),
         train["G3"].pop("pool_check")))
 
     # streaming NNS at phase B's shapes: 256 queries x 1,048,576 items
@@ -2419,7 +2688,8 @@ def main(argv=None) -> int:
         "launches": a["launches"]["streaming_nns"]
         + b["launches"]["streaming_nns"] + e["launches"]["streaming_nns"]
         + cat_f["launches"]["streaming_nns"]
-        + train["launches"]["streaming_nns"],
+        + train["launches"]["streaming_nns"]
+        + mesh["launches"]["streaming_nns"],
         "max_abs_err": 0.0,
         "ms": timed_ms(lambda: ops.streaming_nns_cuda(
             qb, db_b, **kw, **variants["pruned"]), 20),
@@ -2463,7 +2733,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_e=e,
-                  phase_f=cat_f, phase_g=train,
+                  phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,27 @@
 """
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
 
-from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.core.quantization import (
+    QuantizedTensor,
+    dequantize_rowwise,
+    quantize_rowwise,
+)
 from repro_torch.kernels import ops
+from repro_torch.utils import resolve_device
+
+
+def init_table(generator: torch.Generator, n_rows: int, dim: int,
+               scale: float = 0.05, device=None) -> QuantizedTensor:
+    """A random int8 table on `device` (default `cuda`): `scale` * N(0, 1)
+    drawn from `generator` (on its own device), quantized row-wise."""
+    device = resolve_device(device)
+    dense = torch.randn((n_rows, dim), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+    return quantize_rowwise((scale * dense).to(device))
 
 
 def lookup(table: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
@@ -30,3 +47,33 @@ def embedding_bag(
         count = (ids >= 0).to(torch.float32).sum(-1, keepdim=True)
         pooled = pooled / count.clamp(min=1.0)
     return pooled
+
+
+def multi_table_pool(
+    tables: Mapping[str, QuantizedTensor],
+    features: Mapping[str, torch.Tensor],  # name -> (B, L) ids
+    mode: str = "sum",
+    combine: str = "concat",  # "concat" | "sum"
+) -> torch.Tensor:
+    """Pool every feature through its table, by sorted name; combine
+    "concat" (YoutubeDNN's feature concatenation) or "sum" (DLRM's ADD
+    pooling; equal widths), the sum left to right."""
+    outs = [embedding_bag(tables[name], features[name], mode=mode)
+            for name in sorted(features)]
+    if combine == "sum":
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o
+        return total
+    if combine != "concat":
+        raise ValueError(f"multi_table_pool: combine {combine!r} "
+                         f"(concat or sum)")
+    return torch.cat(outs, dim=-1)
+
+
+def table_from_dense(dense: torch.Tensor) -> QuantizedTensor:
+    return quantize_rowwise(dense)
+
+
+def table_to_dense(table: QuantizedTensor) -> torch.Tensor:
+    return dequantize_rowwise(table)

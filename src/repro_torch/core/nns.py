@@ -15,6 +15,19 @@ buffers merge into the exact (distance, id) order of a rebuilt table
 (memmapped) signature DB a chunk of admitted summary blocks at a time; a
 memmap passed to `fixed_radius_nns` routes there.
 
+The multi-device plans run SPMD on `torch.distributed`, a `DeviceMesh`
+standing for the reference's `jax.sharding.Mesh`: every rank makes the
+same call with the same (replicated) queries and gets the same result.
+`sharded_fixed_radius_nns` takes the rank's bank of a row-sharded DB: each
+bank scans its rows through its own plan (`bank_scan`, global ids, a
+bounded buffer), the buffers are all-gathered over the bank axis and
+re-selected (`merge_banks`): the paper's banks, priority encoder and RSC
+bus. With a query axis too, each rank scans its block of the padded query
+batch and the blocks are all-gathered along that axis.
+`query_parallel_nns` and `query_parallel_delta_scan` block the queries
+over a replicated DB. Candidate buffers travel as one packed int32 tensor
+a gather; counts add exactly in any order.
+
 Signatures are int32 tensors holding the uint32 bits. The summary is built
 on the host with numpy (uint32 views), as in the reference.
 """
@@ -32,7 +45,12 @@ from repro_torch.kernels.streaming_nns import (
     BIG_DIST,
     merge_candidate_buffers,
 )
-from repro_torch.utils import cdiv, to_device
+from repro_torch.utils import (
+    all_gather_axis,
+    cdiv,
+    mesh_axis_size,
+    to_device,
+)
 
 # dense materializes q*n int32 — at and above this DB size the O(q*K)
 # streaming scan is the default plan
@@ -335,6 +353,236 @@ def out_of_core_nns(
                      blocks_touched=blocks_touched)
 
 
+def fixed_radius_nns_async(
+    query_sigs: torch.Tensor,  # (q, words) int32
+    db_sigs: torch.Tensor,  # (n, words) int32, on the queries' device
+    radius: int,
+    max_candidates: int = 128,
+    db_mask: torch.Tensor | None = None,
+    *,
+    scan_block: int | None = None,
+    n_valid: int | None = None,
+    superblock: int | None = None,
+    summary: BlockSummary | None = None,
+    prune: bool | None = None,
+) -> NNSResult:
+    """Non-blocking filtering scan: the same arguments and bits as
+    `fixed_radius_nns`, queued on the current stream, returning tensors
+    still being computed. Nothing waits for the device until the caller
+    reads a result (`.cpu()`, an event, `torch.cuda.synchronize`). A
+    host-resident (memmapped) DB is refused: its out-of-core scan reads
+    the prune mask back to the host."""
+    if not isinstance(db_sigs, torch.Tensor):
+        raise TypeError("fixed_radius_nns_async: db_sigs must be a tensor "
+                        "(out-of-core scans synchronize)")
+    return fixed_radius_nns(query_sigs, db_sigs, radius, max_candidates,
+                            db_mask, scan_block=scan_block, n_valid=n_valid,
+                            superblock=superblock, summary=summary,
+                            prune=prune)
+
+
+# ---------------------------------------------------------------------------
+# multi-device plans (SPMD over a DeviceMesh)
+# ---------------------------------------------------------------------------
+def _pad_queries_to_axis(mesh, query_axis, query_sigs):
+    """Pad the query batch with zero rows to a multiple of the query-axis
+    size -> (padded queries, pad count); `_slice_query_pad` drops the pad
+    rows from the result."""
+    pad = (-query_sigs.shape[0]) % mesh_axis_size(mesh, query_axis)
+    if pad:
+        query_sigs = torch.nn.functional.pad(query_sigs, (0, 0, 0, pad))
+    return query_sigs, pad
+
+
+def _slice_query_pad(res: NNSResult, pad: int) -> NNSResult:
+    if not pad:
+        return res
+    q = res.counts.shape[0] - pad
+    bt = None if res.blocks_touched is None else res.blocks_touched[:q]
+    return NNSResult(indices=res.indices[:q], distances=res.distances[:q],
+                     counts=res.counts[:q], blocks_touched=bt)
+
+
+def _gather_packed(res: NNSResult, mesh, axis: str) -> list:
+    """`res` of every rank along `axis`, in rank order, each packed as one
+    int32 tensor (candidates, distances, counts and blocks touched side by
+    side): one all-gather a call. `_unpack` undoes the packing."""
+    cols = [res.indices, res.distances, res.counts[:, None]]
+    if res.blocks_touched is not None:
+        cols.append(res.blocks_touched[:, None])
+    return all_gather_axis(torch.cat(cols, dim=1), mesh, axis)
+
+
+def _unpack(packed: torch.Tensor, k: int, blocks: bool) -> NNSResult:
+    return NNSResult(indices=packed[:, :k], distances=packed[:, k:2 * k],
+                     counts=packed[:, 2 * k],
+                     blocks_touched=packed[:, 2 * k + 1] if blocks else None)
+
+
+def _over_query_blocks(mesh, query_axis: str, query_sigs, scan):
+    """`scan` of this rank's block of the query batch (padded to a
+    multiple of the axis size), the blocks all-gathered along `query_axis`
+    in rank order and the pad rows dropped: every rank returns the whole
+    batch's result."""
+    padded, pad = _pad_queries_to_axis(mesh, query_axis, query_sigs)
+    rows = padded.shape[0] // mesh_axis_size(mesh, query_axis)
+    lo = mesh.get_local_rank(query_axis) * rows
+    res = scan(padded[lo:lo + rows])
+    whole = torch.cat(_gather_packed(res, mesh, query_axis))
+    return _slice_query_pad(
+        _unpack(whole, res.indices.shape[1], res.blocks_touched is not None),
+        pad)
+
+
+def bank_scan(
+    query_sigs: torch.Tensor,  # (q, words) int32
+    bank_sigs: torch.Tensor,  # (per_bank, words) int32 — one bank's rows
+    radius: int,
+    max_candidates: int,
+    *,
+    bank: int,
+    n_valid: int,  # global: rows >= n_valid never match
+    scan_block: int | None = None,
+    superblock: int | None = None,
+    db_mask: torch.Tensor | None = None,  # (per_bank,) bool, the bank's
+    summary: BlockSummary | None = None,  # the bank's blocks; prunes
+) -> NNSResult:
+    """One bank's part of `sharded_fixed_radius_nns`: bank `bank` of
+    equal `per_bank`-row banks scans its rows through its own plan (dense
+    or streaming by `per_bank` and `scan_block`, pruned when `summary` is
+    given) -> its best ``min(max_candidates, per_bank)`` candidates by
+    (distance, row) with GLOBAL ids, and the bank's own counts and blocks
+    touched. A pure function of the bank: `merge_banks` over every bank's
+    result is the sharded plan without a collective."""
+    per_bank = bank_sigs.shape[0]
+    lo = bank * per_bank
+    res = fixed_radius_nns(
+        query_sigs, bank_sigs, radius, min(max_candidates, per_bank),
+        db_mask=db_mask, scan_block=scan_block,
+        n_valid=min(max(n_valid - lo, 0), per_bank), superblock=superblock,
+        summary=summary, prune=summary is not None)
+    return res._replace(
+        indices=torch.where(res.indices >= 0, res.indices + lo, -1))
+
+
+def merge_banks(banks: list, max_candidates: int) -> NNSResult:
+    """Merge the `bank_scan` results of every bank, in bank order, into
+    the exact (distance, global id) order of one scan over all rows.
+
+    The buffers concatenate bank by bank; one stable sort on distance
+    breaks ties by bank and then by the bank's own (distance, row) order,
+    that is by global id (the reference's `lax.top_k` over the bank-major
+    concatenation). ``min(max_candidates, total slots)`` survive, padded
+    with (-1, BIG_DIST). Counts and blocks touched add (integers: exact in
+    any order).
+    """
+    idx = torch.cat([b.indices for b in banks], dim=1)
+    dist = torch.cat([b.distances for b in banks], dim=1)
+    k = min(max_candidates, dist.shape[1])
+    idx, dist = merge_candidate_buffers(idx, dist, k)
+    if k < max_candidates:
+        pad = max_candidates - k
+        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+        dist = torch.nn.functional.pad(dist, (0, pad), value=BIG_DIST)
+    counts = banks[0].counts
+    for b in banks[1:]:
+        counts = counts + b.counts
+    bt = banks[0].blocks_touched
+    if bt is not None:
+        for b in banks[1:]:
+            bt = bt + b.blocks_touched
+    return NNSResult(indices=idx, distances=dist, counts=counts,
+                     blocks_touched=bt)
+
+
+def sharded_fixed_radius_nns(
+    mesh,  # torch.distributed DeviceMesh
+    axis: str,
+    query_sigs: torch.Tensor,  # (q, words) int32, the same on every rank
+    db_sigs: torch.Tensor,  # (per_bank, words) int32 — this rank's bank
+    radius: int,
+    max_candidates: int = 128,
+    n_valid: int | None = None,  # global: rows >= n_valid are padding
+    *,
+    scan_block: int | None = None,  # forwarded to the bank's scan
+    query_axis: str | None = None,  # also block the queries over this axis
+    superblock: int | None = None,
+    db_mask: torch.Tensor | None = None,  # (per_bank,) bool, the bank's
+    summary: BlockSummary | None = None,  # the bank's summary blocks
+    prune: bool | None = None,  # None=auto, False=off
+) -> NNSResult:
+    """Fixed-radius NNS with the item DB row-sharded over `mesh[axis]`.
+
+    Every rank holds one bank: `db_sigs`, `db_mask` and `summary` are its
+    slices of the DB padded to ``per_bank * n_banks`` rows (bank b holds
+    global rows ``[b * per_bank, (b + 1) * per_bank)``; `utils.bank_slice`
+    cuts them), and `n_valid` (default: every row) keeps the pad rows from
+    matching. The bank scans (`bank_scan`), the bounded buffers are
+    all-gathered over `axis` and re-selected (`merge_banks`), and counts
+    and blocks touched add over the banks. Returned ids are global.
+
+    `query_axis` also blocks the query batch over a second axis: each rank
+    scans its block of the batch, padded to a multiple of that axis' size,
+    against its bank, and the merged blocks are all-gathered along
+    `query_axis` (pad rows dropped), so every rank returns the whole
+    batch's result.
+
+    The bank prunes with `summary` when the scan streams, ``per_bank`` is a
+    multiple of `summary.block_rows` and the summary covers exactly the
+    bank; otherwise it scans unpruned (same bits, no `blocks_touched`).
+    """
+    per_bank = db_sigs.shape[0]
+    n_valid = per_bank * mesh_axis_size(mesh, axis) if n_valid is None \
+        else n_valid
+    use_prune = (
+        summary is not None and prune is not False
+        and _plan_streams(per_bank, scan_block)
+        and per_bank % summary.block_rows == 0
+        and summary.n_blocks * summary.block_rows == per_bank)
+
+    def scan(queries):
+        local = bank_scan(queries, db_sigs, radius, max_candidates,
+                          bank=mesh.get_local_rank(axis), n_valid=n_valid,
+                          scan_block=scan_block, superblock=superblock,
+                          db_mask=db_mask,
+                          summary=summary if use_prune else None)
+        k = local.indices.shape[1]
+        return merge_banks([_unpack(p, k, use_prune) for p in
+                            _gather_packed(local, mesh, axis)],
+                           max_candidates)
+
+    if query_axis is None:
+        return scan(query_sigs)
+    return _over_query_blocks(mesh, query_axis, query_sigs, scan)
+
+
+def query_parallel_nns(
+    mesh,  # torch.distributed DeviceMesh
+    query_axis: str,
+    query_sigs: torch.Tensor,  # (q, words) int32, the same on every rank
+    db_sigs: torch.Tensor,  # (n, words) int32, replicated
+    radius: int,
+    max_candidates: int = 128,
+    *,
+    scan_block: int | None = None,
+    n_valid: int | None = None,
+    superblock: int | None = None,
+    db_mask: torch.Tensor | None = None,  # (n,) bool, replicated
+    summary: BlockSummary | None = None,  # replicated with the DB
+    prune: bool | None = None,  # None=auto, False=off
+) -> NNSResult:
+    """Fixed-radius NNS with the query batch blocked over
+    `mesh[query_axis]` and the DB replicated: each rank scans the whole
+    DB for its block of the batch (padded to a multiple of the axis size),
+    and the blocks are all-gathered along the axis (pad rows dropped). No
+    candidate gather across banks: the dual of the sharded plan."""
+    return _over_query_blocks(
+        mesh, query_axis, query_sigs, lambda queries: fixed_radius_nns(
+            queries, db_sigs, radius, max_candidates, db_mask=db_mask,
+            scan_block=scan_block, n_valid=n_valid, superblock=superblock,
+            summary=summary, prune=prune))
+
+
 def delta_scan(
     query_sigs: torch.Tensor,  # (q, words) int32
     delta_sigs: torch.Tensor,  # (D, words) int32 — delta shard signatures
@@ -382,6 +630,25 @@ def merge_delta_candidates(base: NNSResult, delta: NNSResult,
     return NNSResult(indices=idx, distances=d,
                      counts=base.counts + delta.counts,
                      blocks_touched=base.blocks_touched)
+
+
+def query_parallel_delta_scan(
+    mesh,  # torch.distributed DeviceMesh
+    query_axis: str,
+    query_sigs: torch.Tensor,  # (q, words) int32, the same on every rank
+    delta_sigs: torch.Tensor,  # (D, words) int32, replicated
+    delta_ids: torch.Tensor,  # (D,) int32, replicated; EMPTY_ID free
+    radius: int,
+    max_candidates: int = 128,
+) -> NNSResult:
+    """`delta_scan` with the query batch blocked over `mesh[query_axis]`:
+    each rank scans the whole (bounded, replicated) delta shard for its
+    block of the padded batch, and the blocks are all-gathered along the
+    axis (pad rows dropped). Per query independent, so the bits equal the
+    replicated scan's."""
+    return _over_query_blocks(
+        mesh, query_axis, query_sigs, lambda queries: delta_scan(
+            queries, delta_sigs, delta_ids, radius, max_candidates))
 
 
 def delta_aware_nns(

@@ -31,9 +31,10 @@ host-to-device copy, a `.item()` or a device-to-host read there would
 wait for every bucket already queued and undo the overlap (checked on the
 card under `torch.cuda.set_sync_debug_mode("error")`).
 
-`coalesce` concatenates up to that many full buckets into one dispatch
-(in the reference, one routed super-batch per query-mesh dispatch). The
-port has no mesh, so it defaults to 1; larger values stay supported.
+`coalesce` concatenates up to that many full buckets into one dispatch:
+on an engine whose queries are blocked over a mesh axis
+(`RecSysEngine.shard(..., query_axis=...)`) it defaults to that axis' size,
+so each rank scans one bucket's worth of queries a dispatch; else to 1.
 
 Bit-for-bit contract (tested in tests/test_torch_serving.py): pipelined
 serving returns exactly the items, scores, and cache counters the
@@ -61,6 +62,7 @@ from repro_torch.serving.recsys_engine import (
     scan_step,
 )
 from repro_torch.serving.server import ServerConfigError
+from repro_torch.utils import mesh_axis_size
 
 
 class _InFlight(NamedTuple):
@@ -85,8 +87,9 @@ class AsyncServer(MicroBatcher):
       max_batch / buckets: bucketing, as `MicroBatcher`.
       depth: in-flight ring size; 1 degenerates to synchronous serving,
         2 (default) double-buffers host work against device compute.
-      coalesce: number of full buckets fused into one dispatch (default
-        1: the port has no query mesh to route them over).
+      coalesce: number of full buckets fused into one dispatch (default:
+        the engine's query-axis size when it is sharded with
+        `query_axis=...`, else 1).
 
     Invariant: results bit-match the synchronous `MicroBatcher` for any
     depth / coalesce / bucket mix (tested).
@@ -103,7 +106,11 @@ class AsyncServer(MicroBatcher):
         if depth < 1:
             raise ServerConfigError(f"ring depth must be >= 1, got {depth}")
         if coalesce is None:
-            coalesce = 1
+            routed = (engine.nns_mesh is not None
+                      and engine.nns_query_axis is not None)
+            coalesce = (mesh_axis_size(engine.nns_mesh,
+                                       engine.nns_query_axis)
+                        if routed else 1)
         if coalesce < 1:
             raise ServerConfigError(f"coalesce must be >= 1, got {coalesce}")
         self.depth = depth

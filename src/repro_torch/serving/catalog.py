@@ -21,6 +21,13 @@ once (int8 + scale, as the build does) and signs the dequantized rows, so
 a row's image is the same whether it entered at build time, through the
 delta, or through a compaction. The bookkeeping runs on the host with
 numpy; the tables stay on the engine's device.
+
+A bank-sharded engine (`RecSysEngine.shard`) holds one bank of the
+signatures, mask and summary a rank. Reads of the global rows go through
+`global_rows` (an all-gather over the bank axis); an update writes the
+rank's bank of the new mask and recomputes its own summary blocks, and a
+compaction re-shards the folded table onto the engine's mesh. Every rank
+applies the same updates in the same order.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from repro_torch.serving.hot_cache import (
     pin_rows,
     top_ids_by_freq,
 )
+from repro_torch.utils import all_gather_axis
 
 
 class DeltaFullError(RuntimeError):
@@ -129,23 +137,47 @@ def delta_cached_rows(delta, cache, table, ids):
 
 
 # ---------------------------------------------------------------------------
+# the rows a rank holds
+# ---------------------------------------------------------------------------
+def _bank_span(engine) -> tuple[int, int]:
+    """(first global row, row count) of the signature rows this rank
+    holds: all of them unless the engine is bank-sharded."""
+    rows = engine.item_sigs.shape[0]
+    if engine.nns_axis is None:
+        return 0, rows
+    return engine.nns_mesh.get_local_rank(engine.nns_axis) * rows, rows
+
+
+def global_rows(engine, x: torch.Tensor) -> torch.Tensor:
+    """`x`, one of the engine's per-row tensors (signatures or mask), over
+    every row: on a bank-sharded engine the banks all-gathered over the
+    bank axis, in bank order (the padded layout); else `x` itself."""
+    if engine.nns_axis is None:
+        return x
+    return torch.cat(all_gather_axis(x, engine.nns_mesh, engine.nns_axis))
+
+
+# ---------------------------------------------------------------------------
 # host-side epoch transitions (apply / compact / materialize / rebuild)
 # ---------------------------------------------------------------------------
 def ensure_live(engine, delta_capacity: int = 1024):
     """`engine` with an empty delta shard and an all-alive mask, if it has
-    none (and a block summary, if it was built without one)."""
+    none (and a block summary, if it was built without one). A bank's pad
+    rows are dead."""
     if engine.delta is not None:
         return engine
     n, d = engine.item_table_q.values.shape
     words = engine.item_sigs.shape[1]
+    lo, rows = _bank_span(engine)
+    n_valid = min(max(n - lo, 0), rows)
     summary = engine.block_summary
     if summary is None:
-        summary = build_block_summary(engine.item_sigs, n_valid=n)
+        summary = build_block_summary(engine.item_sigs, n_valid=n_valid)
     return dataclasses.replace(
         engine,
         delta=empty_delta(delta_capacity, d, words, engine.device),
         block_summary=summary,
-        item_mask=torch.ones((n,), dtype=torch.bool, device=engine.device))
+        item_mask=torch.arange(rows, device=engine.device) < n_valid)
 
 
 def quantize_updates(engine, rows):
@@ -230,20 +262,25 @@ def engine_apply_updates(engine, upsert_ids=None, upsert_rows=None,
         raise ValueError("engine has no delta shard; wrap it in "
                          "LiveCatalog or call ensure_live() first")
     n_base = int(engine.item_table_q.values.shape[0])
-    mask = engine.item_mask.cpu().numpy().copy()
+    mask = global_rows(engine, engine.item_mask).cpu().numpy().copy()
     new_np, touched = fold_updates(
         _delta_numpy(engine.delta), n_base, mask,
         lambda rows: quantize_updates(engine, rows), upsert_ids,
         upsert_rows, delete_ids)
+    # this rank's rows of the new mask, and its own summary blocks
+    lo, rows = _bank_span(engine)
+    mask = mask[lo:lo + rows]
     summary = engine.block_summary
-    base_touched = [g for g in touched if g < n_base]
+    base_touched = [g - lo for g in touched
+                    if g < n_base and lo <= g < lo + rows]
     if summary is not None and base_touched:
         summary = update_block_summary(summary, engine.item_sigs, mask,
                                        base_touched)
     dev = engine.device
     return dataclasses.replace(
         engine, delta=_delta_from_numpy(*new_np, dev),
-        item_mask=torch.from_numpy(mask).to(dev), block_summary=summary,
+        item_mask=torch.from_numpy(mask.copy()).to(dev),
+        block_summary=summary,
         item_hot=invalidate_rows(engine.item_hot, np.asarray(touched)))
 
 
@@ -282,10 +319,14 @@ def materialize(engine):
     (n_total,) bool): n_total covers every id ever upserted. Untouched
     rows keep their base bytes, delta rows scatter in, and id gaps get the
     canonical zero row and stay dead. Both the compaction and the
-    reference rebuild use it, so they fold the same table.
+    reference rebuild use it, so they fold the same table. A bank-sharded
+    engine's signatures and mask are gathered from every bank.
     """
     n_base, d = engine.item_table_q.values.shape
     words = engine.item_sigs.shape[1]
+    base_sigs = global_rows(engine, engine.item_sigs)
+    base_mask = (None if engine.item_mask is None
+                 else global_rows(engine, engine.item_mask))
     dev = engine.device
     gids = torch.zeros((0,), dtype=torch.long, device=dev)
     live = gids
@@ -299,10 +340,9 @@ def materialize(engine):
     sigs = zero_sig.expand(n_total, words).clone()
     values[:n_base] = engine.item_table_q.values
     scales[:n_base] = engine.item_table_q.scales
-    sigs[:n_base] = engine.item_sigs[:n_base]
+    sigs[:n_base] = base_sigs[:n_base]
     alive = torch.zeros((n_total,), dtype=torch.bool, device=dev)
-    alive[:n_base] = (True if engine.item_mask is None
-                      else engine.item_mask[:n_base])
+    alive[:n_base] = True if base_mask is None else base_mask[:n_base]
     if len(gids):
         values[gids] = engine.delta.values[live]
         scales[gids] = engine.delta.scales[live]
@@ -320,23 +360,30 @@ def compact_engine(engine):
     """Fold the delta into a fresh base epoch -> the new engine: the
     materialized table, its alive mask, a summary built cold over them and
     an empty delta. The hot cache carries over (touched rows were evicted
-    at update time, and surviving rows keep their bytes)."""
+    at update time, and surviving rows keep their bytes). A sharded engine
+    is re-sharded onto its mesh after the fold."""
     if engine.delta is None:
         raise ValueError("engine has no delta shard to compact")
     table, sigs, alive = materialize(engine)
     d, words = table.values.shape[1], sigs.shape[1]
-    return dataclasses.replace(
+    out = dataclasses.replace(
         engine, item_table_q=table, item_sigs=sigs, item_mask=alive,
         block_summary=build_block_summary(sigs, _summary_rows(engine),
                                           db_mask=alive),
-        delta=empty_delta(engine.delta.capacity, d, words, engine.device))
+        delta=empty_delta(engine.delta.capacity, d, words, engine.device),
+        nns_mesh=None, nns_axis=None, nns_query_axis=None)
+    if engine.nns_mesh is not None:
+        out = out.shard(engine.nns_mesh, engine.nns_axis,
+                        query_axis=engine.nns_query_axis)
+    return out
 
 
 def rebuild_reference(engine):
     """A from-scratch engine over the live engine's final table: the
     bit-match oracle. Base, signatures and mask come from `materialize`,
     the summary is built cold, the delta is empty (of the same capacity),
-    and the hot cache pins exactly the live cache's surviving hot set."""
+    and the hot cache pins exactly the live cache's surviving hot set.
+    Always unsharded."""
     table, sigs, alive = materialize(engine)
     d, words = table.values.shape[1], sigs.shape[1]
     cap = engine.item_hot.capacity
@@ -350,7 +397,8 @@ def rebuild_reference(engine):
         block_summary=build_block_summary(sigs, _summary_rows(engine),
                                           db_mask=alive),
         item_hot=item_hot,
-        delta=empty_delta(capacity, d, words, engine.device))
+        delta=empty_delta(capacity, d, words, engine.device),
+        nns_mesh=None, nns_axis=None, nns_query_axis=None)
 
 
 def repin_hot_from_freqs(engine, freqs):
@@ -366,7 +414,8 @@ def repin_hot_from_freqs(engine, freqs):
     m = min(len(freqs), n)
     f[:m] = np.asarray(freqs)[:m]
     alive = (np.ones((n,), bool) if engine.item_mask is None
-             else engine.item_mask[:n].cpu().numpy().copy())
+             else global_rows(engine, engine.item_mask)[:n].cpu().numpy()
+             .copy())
     if engine.delta is not None:
         dids = engine.delta.ids.cpu().numpy()
         dids = dids[dids != EMPTY_ID]
@@ -538,7 +587,8 @@ class LiveCatalog:
         """Alive catalog size: alive base rows plus live delta rows (the
         two id sets are disjoint: overwritten base rows are tombstoned)."""
         n_base = int(self.engine.item_table_q.values.shape[0])
-        alive = int(self.engine.item_mask[:n_base].sum())
+        alive = int(global_rows(self.engine,
+                                self.engine.item_mask)[:n_base].sum())
         return alive + delta_n_live(self.engine.delta)
 
     def rebuild_reference(self):
@@ -549,8 +599,14 @@ class LiveCatalog:
     # -- persistence ---------------------------------------------------
     def snapshot(self, directory) -> None:
         """Atomic epoch-numbered snapshot of the whole engine (base, delta,
-        tombstones, hot caches) through the checkpointer."""
+        tombstones, hot caches) through the checkpointer. A bank-sharded
+        engine is refused: each rank holds only its bank."""
         from repro_torch.checkpoint import checkpointer
+
+        if self.engine.nns_axis is not None:
+            raise ValueError("snapshot() of a bank-sharded engine: each "
+                             "rank holds one bank; snapshot an unsharded "
+                             "engine")
 
         checkpointer.save(directory, self.epoch, self.engine)
 

@@ -78,6 +78,18 @@ from repro_torch.serving.server import (
 _INNER_STAGES = frozenset(("bucket", "dispatch", "scan", "rank"))
 
 
+def _refuse_spmd(engine) -> None:
+    """A mesh engine over more than one rank needs every rank to serve
+    the same buckets in the same order; the drain thread forms its
+    buckets by timing, which no two ranks share."""
+    mesh = engine.nns_mesh
+    if mesh is not None and mesh.size() > 1:
+        raise ServerConfigError(
+            f"the concurrent front-end forms buckets by timing; an engine "
+            f"sharded over {mesh.size()} ranks needs the same buckets on "
+            f"every rank: serve it through the sync or pipelined front-end")
+
+
 class ConcurrentFrontend:
     """Threaded multi-tenant front-end over an inner `AsyncServer` ring.
 
@@ -111,6 +123,7 @@ class ConcurrentFrontend:
                  shed: bool = True, autostart: bool = True,
                  trace: bool = True,
                  registry: MetricsRegistry | None = None):
+        _refuse_spmd(engine)
         if tenants < 1:
             raise ServerConfigError(f"tenants must be >= 1, got {tenants}")
         if queue_depth is not None and queue_depth < 1:
@@ -390,6 +403,7 @@ class ConcurrentFrontend:
         raises `SchemaMismatchError` to the *caller*; the drain thread is
         untouched.
         """
+        _refuse_spmd(engine)
         with self._serve_lock:
             self._inner.swap_engine(engine)
 

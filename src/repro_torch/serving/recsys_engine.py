@@ -17,7 +17,12 @@ Per batch, three stages (`serve_step`):
 
 The engine is a plain dataclass of tensors on one device. PyTorch runs
 eagerly, so the stage functions are called directly (the reference jits
-them). The two stages' pool plans (`kernels/ops.py:PoolPlan`: tables, hot
+them). `shard` spreads the filtering NNS over a `torch.distributed`
+`DeviceMesh`: each rank keeps only its bank of the signatures, the
+tombstone mask and the block summary (the item table stays replicated, as
+in the reference), and the scan runs the mesh plans of `core.nns`. Every
+rank makes the same calls (SPMD) and serves the same bits as the unsharded
+engine. The two stages' pool plans (`kernels/ops.py:PoolPlan`: tables, hot
 sets, side tables, modes and output columns) do not depend on the batch
 and are built with the engine.
 
@@ -55,6 +60,9 @@ from repro_torch.core.nns import (
     delta_scan,
     fixed_radius_nns,
     merge_delta_candidates,
+    query_parallel_delta_scan,
+    query_parallel_nns,
+    sharded_fixed_radius_nns,
 )
 from repro_torch.core.quantization import (
     QuantizedTensor,
@@ -69,7 +77,12 @@ from repro_torch.serving.hot_cache import (
     HotRowCache,
     build_hot_cache,
 )
-from repro_torch.utils import resolve_device, to_device
+from repro_torch.utils import (
+    bank_slice,
+    mesh_axis_size,
+    resolve_device,
+    to_device,
+)
 
 
 class ServeResult(NamedTuple):
@@ -87,8 +100,10 @@ class RecSysEngine:
 
     ``scan_block``: None routes dense vs streaming by catalog size, 0
     forces dense, > 0 forces streaming. ``prune``: None prunes the
-    streaming scan with ``block_summary``, False scans unpruned. Both are
-    execution knobs only: every plan serves the same bits.
+    streaming scan with ``block_summary``, False scans unpruned.
+    ``nns_mesh`` / ``nns_axis`` / ``nns_query_axis``: set by `shard`; the
+    NNS runs bank-sharded, query-parallel, or both. All are execution
+    knobs only: every plan serves the same bits.
     """
 
     tables_q: dict  # name -> QuantizedTensor (int8 UIETs)
@@ -108,6 +123,13 @@ class RecSysEngine:
     top_k: int = 10
     scan_block: int | None = None
     prune: bool | None = None
+    # set by `shard`: a torch.distributed DeviceMesh, the axis the
+    # signature rows are banked over (this rank then holds one bank of
+    # item_sigs, item_mask and block_summary) and the axis the queries are
+    # blocked over
+    nns_mesh: object = None
+    nns_axis: str | None = None
+    nns_query_axis: str | None = None
     # the two stages' grouped-pool plans, made from the fields above
     lookup_plan: ops.PoolPlan = dataclasses.field(init=False, repr=False,
                                                   compare=False)
@@ -159,6 +181,51 @@ class RecSysEngine:
             block_summary=build_block_summary(sigs),
             radius=radius, n_candidates=n_candidates, top_k=top_k,
             scan_block=scan_block, prune=prune)
+
+    def shard(self, mesh, axis: str | None = None, *,
+              query_axis: str | None = None) -> "RecSysEngine":
+        """Spread the filtering NNS over `mesh` (a `DeviceMesh` of the
+        engine's device type; every rank calls this, and then serves, in
+        the same order).
+
+        `axis` banks the signature rows: they are padded to a multiple of
+        the axis size (pad rows never match: `n_valid`, and dead in the
+        mask) and this rank keeps only its bank of `item_sigs`,
+        `item_mask` and the block summary. The summary is rebuilt over the
+        bank's rows of the padded layout, or dropped when the bank size is
+        not a multiple of its block rows (the banks then scan unpruned:
+        same bits). `query_axis` blocks the query batch over a second
+        axis, each block scanning its bank (or, without `axis`, the whole
+        replicated catalog). `shard(mesh, "banks", query_axis="qp")`
+        partitions (query block x bank).
+        """
+        if axis is None and query_axis is None:
+            raise ValueError("shard() needs a db axis, a query_axis, or both")
+        if self.nns_axis is not None:
+            raise ValueError("shard() an unsharded engine: this one already "
+                             "holds one bank")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"shard(): a {mesh.device_type} mesh for an "
+                             f"engine on {self.device}")
+        sigs, mask, summary = self.item_sigs, self.item_mask, \
+            self.block_summary
+        if axis is not None:
+            n_banks = mesh_axis_size(mesh, axis)
+            bank = mesh.get_local_rank(axis)
+            n = sigs.shape[0]
+            sigs = bank_slice(sigs, n_banks, bank)
+            per_bank = sigs.shape[0]
+            if mask is not None:  # pad rows stay dead
+                mask = bank_slice(mask, n_banks, bank, fill=False)
+            if summary is not None:
+                br = summary.block_rows
+                summary = (build_block_summary(
+                    sigs, br, db_mask=mask,
+                    n_valid=min(max(n - bank * per_bank, 0), per_bank))
+                    if per_bank % br == 0 else None)
+        return dataclasses.replace(
+            self, item_sigs=sigs, item_mask=mask, block_summary=summary,
+            nns_mesh=mesh, nns_axis=axis, nns_query_axis=query_axis)
 
     def live(self, delta_capacity: int = 1024) -> "RecSysEngine":
         """A live-catalog view: an empty delta shard of `delta_capacity`
@@ -304,19 +371,36 @@ def _features(engine: RecSysEngine, batch: dict, sides=None):
 
 
 def _nns(engine: RecSysEngine, q_sigs: torch.Tensor) -> NNSResult:
-    """Filtering scan (local plan): the base through its routed plan with
-    tombstones masked; a live engine's delta shard scans dense and the two
-    buffers merge into the rebuilt table's (distance, id) order."""
-    base = fixed_radius_nns(q_sigs, engine.item_sigs, engine.radius,
-                            engine.n_candidates,
-                            scan_block=engine.scan_block,
-                            db_mask=engine.item_mask,
-                            summary=engine.block_summary, prune=engine.prune)
+    """Filtering scan: the base through the engine's plan (bank-sharded,
+    query-parallel or local) with tombstones masked; a live engine's delta
+    shard scans dense (its queries blocked over the query axis, if any)
+    and the two buffers merge into the rebuilt table's (distance, id)
+    order."""
+    mesh, n_items = engine.nns_mesh, engine.item_table_q.values.shape[0]
+    kw = dict(scan_block=engine.scan_block, db_mask=engine.item_mask,
+              summary=engine.block_summary, prune=engine.prune)
+    if mesh is not None and engine.nns_axis is not None:
+        base = sharded_fixed_radius_nns(
+            mesh, engine.nns_axis, q_sigs, engine.item_sigs, engine.radius,
+            engine.n_candidates, n_valid=n_items,
+            query_axis=engine.nns_query_axis, **kw)
+    elif mesh is not None:
+        base = query_parallel_nns(
+            mesh, engine.nns_query_axis, q_sigs, engine.item_sigs,
+            engine.radius, engine.n_candidates, n_valid=n_items, **kw)
+    else:
+        base = fixed_radius_nns(q_sigs, engine.item_sigs, engine.radius,
+                                engine.n_candidates, **kw)
     delta = engine.delta
     if delta is None or delta.capacity == 0:
         return base
-    pending = delta_scan(q_sigs, delta.sigs, delta.ids, engine.radius,
-                         engine.n_candidates)
+    if mesh is not None and engine.nns_query_axis is not None:
+        pending = query_parallel_delta_scan(
+            mesh, engine.nns_query_axis, q_sigs, delta.sigs, delta.ids,
+            engine.radius, engine.n_candidates)
+    else:
+        pending = delta_scan(q_sigs, delta.sigs, delta.ids, engine.radius,
+                             engine.n_candidates)
     return merge_delta_candidates(base, pending, engine.n_candidates)
 
 

@@ -52,7 +52,7 @@ def rebuild_from_params(engine, params):
     built cold, the delta is empty (of the live capacity) and every base
     row is alive. The hot caches pin the live engine's current pinned ids
     over the fresh tables (the cache is bit-transparent; pinning the same
-    set keeps `CacheStats` comparable too).
+    set keeps `CacheStats` comparable too). Always unsharded.
     """
     params = to_device(params, engine.device)
     item_q = quantize_rowwise(params["item_table"].to(torch.float32))
@@ -79,7 +79,8 @@ def rebuild_from_params(engine, params):
                   for k, c in engine.uiet_hot.items()},
         item_mask=torch.ones((n,), dtype=torch.bool, device=engine.device),
         block_summary=summary,
-        delta=empty_delta(cap, d, sigs.shape[1], engine.device))
+        delta=empty_delta(cap, d, sigs.shape[1], engine.device),
+        nns_mesh=None, nns_axis=None, nns_query_axis=None)
 
 
 class ShadowRecord(NamedTuple):

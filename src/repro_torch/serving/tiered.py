@@ -209,6 +209,12 @@ def _staged(a: np.ndarray, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the tiered catalog
 # ---------------------------------------------------------------------------
+def _refuse_mesh(engine) -> None:
+    if engine.nns_mesh is not None:
+        raise ValueError("TieredCatalog serving is host-driven; "
+                         "use an unsharded engine")
+
+
 class TieredCatalog:
     """Host-driven tiered serving over a memmapped base shard.
 
@@ -227,6 +233,7 @@ class TieredCatalog:
                  alive, summary, pool_rows: int, item_freqs=None,
                  delta_capacity: int = 1024, auto_compact: bool = True,
                  registry=None):
+        _refuse_mesh(inner)
         self.directory = directory
         self.base = shard
         self.inner = inner
@@ -344,6 +351,7 @@ class TieredCatalog:
         """Spill an all-RAM engine's item table (its base; a live engine's
         pending delta is not part of it) to an epoch-0 shard under
         `directory` and serve it tiered."""
+        _refuse_mesh(engine)
         n = int(engine.item_table_q.values.shape[0])
         sigs = engine.item_sigs[:n].cpu().numpy().view(np.uint32)
         alive = (np.ones((n,), bool) if engine.item_mask is None

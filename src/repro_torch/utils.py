@@ -1,8 +1,9 @@
-"""Shape helpers and device resolution shared by the port."""
+"""Shape helpers, device resolution and the device mesh shared by the port."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def cdiv(a: int, b: int) -> int:
@@ -33,6 +34,66 @@ def resolve_device(device=None) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"repro_torch: unsupported device {device}")
     return device
+
+
+def make_mesh(shape, names, device=None):
+    """The port's `jax.make_mesh`: a `DeviceMesh` of `shape` with axes
+    `names` over the default process group, on `cuda` (NCCL) unless the
+    caller asks for `cpu` (gloo).
+
+    The caller owns the rendezvous: `torch.distributed.init_process_group`
+    with an address, world size, rank and timeout of its own, on a backend
+    of the mesh's device. Without one this raises (`init_device_mesh` would
+    otherwise start one from environment variables).
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh: no process group; call "
+            "torch.distributed.init_process_group first")
+    return init_device_mesh(device.type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    """The number of ranks along `mesh`'s axis `axis`."""
+    return mesh.shape[mesh.mesh_dim_names.index(axis)]
+
+
+def all_gather_axis(x: torch.Tensor, mesh, axis: str) -> list:
+    """`x` from every rank along `mesh`'s axis `axis`, in the axis' rank
+    order (`dist.all_gather` over the axis' group).
+
+    The tensor stays where it is: a mesh of another device type than the
+    tensor's raises, so no gather runs on the host behind the card's back.
+    Bool tensors travel as uint8.
+    """
+    if x.device.type != mesh.device_type:
+        raise ValueError(f"all_gather_axis: a {x.device.type} tensor on a "
+                         f"{mesh.device_type} mesh")
+    y = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    parts = [torch.empty_like(y) for _ in range(mesh_axis_size(mesh, axis))]
+    dist.all_gather(parts, y, group=mesh.get_group(axis))
+    return [p.to(torch.bool) for p in parts] if x.dtype == torch.bool \
+        else parts
+
+
+def bank_slice(x: torch.Tensor, n_banks: int, bank: int, fill=0):
+    """Bank `bank` of `x`'s rows split over `n_banks` banks: the rows are
+    padded with `fill` to a multiple of `n_banks`, and the bank's
+    `cdiv(n, n_banks)` rows come back as a tensor of their own (a copy, so
+    the whole table need not stay alive)."""
+    per = cdiv(x.shape[0], n_banks)
+    lo, hi = bank * per, (bank + 1) * per
+    part = x[lo:min(hi, x.shape[0])]
+    pad = per - part.shape[0]
+    if pad:
+        tail = torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([part, tail])
+    return part.clone()
 
 
 def to_device(tree, device):

@@ -11,8 +11,10 @@ versions are themselves held against the JAX reference on the CPU by
 `tests/test_torch_kernels.py`, `tests/test_torch_core.py` and
 `tests/test_torch_engine.py`. The serving front-ends must serve the same
 bits in every mode on the card, and the pipelined ring must queue a
-bucket without a host sync. Integer outputs must be equal; the pool's
-floats are held to 1e-6 of the pooled magnitudes, as there. The flash
+bucket without a host sync. The multi-GPU plans run over a world-size-1
+NCCL group, and the sharded scan as banks on one card. Integer outputs
+must be equal; the pool's floats are held to 1e-6 of the pooled
+magnitudes, as there. The flash
 kernel is held to 2e-5 in float32 and 2e-2 in bfloat16 (the Pallas
 kernel's tolerances in `tests/test_kernels.py`; both sides accumulate in
 float32 in another order), the int8 matmul bit for bit.
@@ -1006,3 +1008,119 @@ def test_shadow_gap_is_zero_after_folds_on_the_card(cuda):
                     ).serve_many(queries),
         make_server(rebuild_from_params(cat.engine, trainer.params), "sync",
                     max_batch=SERVE_BATCH).serve_many(queries))
+
+
+# ---------------------------------------------------------------------------
+# the multi-GPU plans: NCCL at world size 1, and banks on one card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl(cuda, tmp_path):
+    """A world-size-1 NCCL group (`file://` rendezvous in `tmp_path`)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    yield
+    dist.destroy_process_group()
+
+
+def _same_serve(got, want, blocks=True):
+    assert torch.equal(got.items, want.items)
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert got.stats.as_dict() == want.stats.as_dict()
+    for f in ("indices", "distances", "counts", "blocks_touched"):
+        a, b = getattr(got.nns, f), getattr(want.nns, f)
+        if f == "blocks_touched" and (not blocks or a is None or b is None):
+            continue
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+
+@pytest.mark.parametrize("scan_block", [None, 128])
+def test_nccl_mesh_engine_serves_like_the_local_engine(cuda, nccl,
+                                                       scan_block):
+    """Sharded as banks, as a query axis and as a 1 x 1 grid over NCCL:
+    the unsharded engine's bits and launches; a live update and a
+    compaction on the grid engine serve `rebuild_reference()`'s bits."""
+    from repro_torch.utils import make_mesh
+
+    eng, queries = _serving_setup(cuda, scan_block)
+    batch = {k: np.stack([q[k] for q in queries[:SERVE_BATCH]])
+             for k in queries[0]}
+    eng.serve(batch)
+    build.reset_launches()
+    want = eng.serve(batch)
+    local = build.launch_counts()
+    grid = make_mesh((1, 1), ("qp", "banks"))
+    for mesh, axis, qaxis in ((make_mesh((1,), ("banks",)), "banks", None),
+                              (make_mesh((1,), ("qp",)), None, "qp"),
+                              (grid, "banks", "qp")):
+        sharded = eng.shard(mesh, axis, query_axis=qaxis)
+        sharded.serve(batch)
+        build.reset_launches()
+        got = sharded.serve(batch)
+        assert build.launch_counts() == local
+        _same_serve(got, want)
+    cat = LiveCatalog(eng.shard(grid, "banks", query_axis="qp"),
+                      delta_capacity=32)
+    rng = np.random.default_rng(3)
+    cat.upsert(np.arange(2000, 2008),
+               rng.standard_normal((8, 32)).astype(np.float32))
+    cat.delete([3, 2001])
+    _same_serve(cat.engine.serve(batch),
+                cat.rebuild_reference().serve(batch), blocks=False)
+    cat.compact()
+    assert cat.engine.nns_mesh is grid and cat.engine.nns_axis == "banks"
+    _same_serve(cat.engine.serve(batch),
+                cat.rebuild_reference().serve(batch), blocks=False)
+
+
+@pytest.mark.parametrize("n,n_banks,block_rows", [(65536, 4, 4096),
+                                                  (3000, 3, None),
+                                                  (3000, 7, None)])
+def test_bank_scan_merge_equals_local_plan_on_the_card(cuda, n, n_banks,
+                                                       block_rows):
+    """`bank_scan` of every bank and `merge_banks`, no collective: the
+    local plan's bits (pruned streaming banks of whole summary blocks, or
+    dense banks, 7 of them padded), and the plain versions'."""
+    from repro_torch.core.nns import bank_scan, merge_banks
+    from repro_torch.utils import bank_slice
+
+    rng = np.random.default_rng(n_banks)
+    db = _sigs(rng, n, 8, cuda)
+    q = db[rng.choice(n, 64)].clone()
+    q[:, 0] ^= 0x0F0F
+    scan = 4096 if block_rows else 0
+    summary = (build_block_summary(db, block_rows) if block_rows else None)
+    want = fixed_radius_nns(q, db, 100, 50, scan_block=scan, summary=summary)
+    banks = [bank_slice(db, n_banks, b) for b in range(n_banks)]
+    per = banks[0].shape[0]
+    sums = [None] * n_banks
+    if block_rows:
+        nb = per // block_rows
+        sums = [type(summary)(*(x[b * nb:(b + 1) * nb] for x in (
+            summary.or_sigs, summary.and_sigs, summary.min_pc,
+            summary.max_pc, summary.n_alive)), block_rows=block_rows)
+            for b in range(n_banks)]
+
+    def merged():
+        return merge_banks([bank_scan(q, banks[b], 100, 50, bank=b,
+                                      n_valid=n, scan_block=scan,
+                                      summary=sums[b])
+                            for b in range(n_banks)], 50)
+
+    build.reset_launches()
+    got = merged()
+    counts = build.launch_counts()
+    assert counts["streaming_nns" if block_rows else "hamming_distances"] \
+        == n_banks
+    with _plain("hamming_distances", "streaming_nns"):
+        plain = merged()
+    for f in ("indices", "distances", "counts", "blocks_touched"):
+        a, b, p = (getattr(r, f) for r in (got, want, plain))
+        assert (a is None) == (b is None) == (p is None)
+        assert a is None or (torch.equal(a, b) and torch.equal(a, p))
+    assert (got.blocks_touched is not None) == bool(block_rows)

@@ -472,6 +472,31 @@ def test_load_gen_replay_and_summary(served):
     server.close()
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_dumped_trace_renders_through_obs_report(served, mode, tmp_path):
+    """A real front-end's trace, written by `obs.dump_trace`, loads and
+    renders through `tools/obs_report.py`, as the reference's does
+    (`tests/test_obs.py`): every ticket ok, the served stages present,
+    the stage means summing to the mean latency."""
+    from tools.obs_report import load_trace, render_breakdown, stage_breakdown
+
+    _, teng, data = served
+    stream = _stream(data)
+    server = _make(teng, mode)
+    _serve_many(server, stream)
+    trace = server.take_trace()
+    path = tmp_path / "trace.jsonl"
+    assert obs.dump_trace(trace, path) == len(trace) == len(stream)
+    bd = stage_breakdown(load_trace(path), status=STATUS_OK)
+    assert bd["n"] == len(stream) and bd["by_status"] == {
+        STATUS_OK: len(stream)}
+    assert set(bd["stages"]) >= {"bucket", "dispatch", "scan", "rank"}
+    assert bd["stage_sum_mean_s"] == pytest.approx(bd["latency_s"]["mean"])
+    table = render_breakdown(bd)
+    assert "stage-sum mean" in table and "scan" in table
+    server.close()
+
+
 def test_frontend_direct_construction(served):
     _, teng, data = served
     fe = ConcurrentFrontend(teng, tenants=2, max_batch=MAX_BATCH)
