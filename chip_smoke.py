@@ -113,7 +113,32 @@
    table on the pool kernel, bit-equal to the plain versions and within
    1e-6 of the one-table pool. H.1's launches count in the kernel table;
    H.2's are comparisons and do not.
-9. Phase C: each kernel against its plain version on the card at the
+9. Phase I: LM training on the card (`distributed.training`), Qwen3-8B
+   at full width (d_model 4096, 32 heads over 8 kv heads, head_dim 128,
+   d_ff 12288, vocab 151,936, qk-norm) with its depth cut to 4 layers
+   (36 do not fit one card in training: ~28 bytes a param), bf16 weights
+   from a seeded CUDA generator, the bundle's `remat="block"` and
+   `logit_chunk=1024`, float32 AdamW states, base lr 5e-4 (warm-up 5,
+   cosine), the synthetic token stream of `data/lm_data.py` through its
+   prefetcher: seq 2048, microbatch 2, accumulation 2 (8,192 tokens a
+   step). I.1: the chunked loss equals the unchunked one within 1e-3
+   relative (bf16 logits from GEMMs of another shape) and the first
+   step's loss and grad norm are finite. I.2: the blocked attention's
+   custom backward at one layer's shape (B 2, 8 x 4 heads, S 2048, hd
+   128, float32) against autograd through the materialized softmax, dq,
+   dk, dv within 1e-4 of each one's largest magnitude; its forward and
+   backward timed with TF32 off (as the port runs) and on. I.5: two runs
+   of the first step from one state give the same bits (parameters
+   compared whole, every other tensor by an exact integer digest). I.3:
+   30 more steps: the last five steps' mean loss at least 0.05 below the
+   first step's; ms a step (host clock, synchronized, median), tokens/s,
+   `mfu` (PaLM's model flops over 989 TFLOP/s), `torch.profiler` over
+   one step (device ms, idle share, ms by kernel kind, the top kernels),
+   peak memory. I.4: 6 steps each with int8 AdamW states and with int8
+   gradient compression, each loss within 0.25 of the float32 run's at
+   the same step. No port kernel may launch in phase I: the reference
+   trains through its blocked attention, never its Pallas kernel.
+10. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -141,13 +166,13 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, H, D, C in that order. Prints one line per phase (phase E's
-and F's with the card's name and power limit), one line per kernel, the card's
-name and power limit as `nvidia-smi` gives them, a `kernels` JSON line,
-and last `{"ok": true, "device": {...}}`; `--record PATH` also writes
-the full record as JSON. Any failure exits nonzero. Without a
-GPU, or without the repository beside it, it exits 1 and prints no
-result.
+Runs A, B, E, F, G, H, D, I, C in that order. Prints one line per phase
+(phase E's, F's and I's with the card's name and power limit), one line
+per kernel, the card's name and power limit as `nvidia-smi` gives them,
+a `kernels` JSON line, and last `{"ok": true, "device": {...}}`;
+`--record PATH` also writes the full record as JSON. Any failure exits
+nonzero. Without a GPU, or without the repository beside it, it exits 1
+and prints no result.
 
 `--profile` runs only the timing of phases A and B's serve steps (stages,
 serve step, profile) and of the Hamming op, with the port imported from
@@ -236,6 +261,33 @@ G_QUERIES = 4 * BATCH
 G_FROZEN_ROUNDS = 10
 G_ONLINE_STEPS = 40
 G_DLRM_STEPS = 150
+# phase I: LM training, Qwen3-8B at full width with its depth cut to 4
+# layers (36 do not fit: ~8.2 B params at ~28 bytes a param in a step);
+# microbatch 2 x 2048 tokens, accumulation 2: 8,192 tokens a step
+I_LAYERS = 4
+I_SEQ = 2048
+I_MB = 2
+I_ACCUM = 2
+I_STEPS = 30  # timed steps after the first (checked) one
+I_VARIANT_STEPS = 6
+# base lr 1e-3 spiked the loss at full width (12.39 -> 12.86 as the
+# warm-up reached it); 5e-4 is the largest of 1e-4 .. 5e-4 that fell
+# steadily (PERF.md, section 6)
+I_SCHEDULE = dict(base_lr=5e-4, warmup=5, total_steps=I_STEPS + 1)
+I_FALL = 0.05  # the last five steps' mean loss below the first step's
+I_CHUNK_RTOL = 1e-3  # bf16 logits of another GEMM shape, summed otherwise
+I_ATTN_TOL = 1e-4  # of each gradient's largest magnitude: f32 sums of
+#                    2,048 terms in other orders
+I_VARIANT_GAP = 0.25  # tests/test_training.py's bound between variants
+# a train step's kernels by kind, by name: cuBLAS runs the bf16 GEMMs as
+# `nvjet` kernels and, with TF32 off, the attention's float32 einsums as
+# `f32f32` FFMA ones; eager ops are `elementwise`, `reduce` or `copy`
+I_PROFILE_GROUPS = {"bf16 GEMM": ("nvjet",),
+                    "f32 GEMM (attention)": ("gemm", "f32f32"),
+                    "other GEMM": ("gemm",),
+                    "reductions": ("reduce",),
+                    "copies and casts": ("copy",),
+                    "elementwise": ("elementwise",)}
 WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1901,10 +1953,13 @@ def gap_frac(logits: torch.Tensor, tok: torch.Tensor) -> float:
     return float((gap / spread).max())
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, groups: dict | None = None, n_top: int = 5) -> dict:
     """One run of `fn` under `torch.profiler`: the CUDA kernels it ran,
     their summed device time, the wall time and the device's idle share
-    of it, and the five kernels that took the most time."""
+    of it, and the `n_top` kernels that took the most time. `groups` (name:
+    substrings) also sums the device ms of the kernels whose name holds
+    all of a group's substrings, the first group that matches winning;
+    the rest go to "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1919,11 +1974,18 @@ def device_profile(fn) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
-    return {"kernels": sum(len(v) for v in by_name.values()),
-            "device_ms": busy_ms, "wall_ms": wall_ms,
-            "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-            "top": [(name[:80], len(v), sum(v) / 1e3) for name, v in top]}
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:n_top]
+    out = {"kernels": sum(len(v) for v in by_name.values()),
+           "device_ms": busy_ms, "wall_ms": wall_ms,
+           "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+           "top": [(name[:80], len(v), sum(v) / 1e3) for name, v in top]}
+    if groups:
+        out["groups_ms"] = dict.fromkeys([*groups, "other"], 0.0)
+        for name, v in by_name.items():
+            hit = next((g for g, subs in groups.items()
+                        if all(x in name for x in subs)), "other")
+            out["groups_ms"][hit] += sum(v) / 1e3
+    return out
 
 
 def serve_profile(engine, batch, ops) -> dict:
@@ -1946,6 +2008,7 @@ def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
     from repro_torch.core.quantization import quantize_rowwise
     from repro_torch.models import transformer as tf
     from repro_torch.serving import engine as lm
+    from repro_torch.utils import tree_leaves
 
     bundle = get_arch(LM_ARCH)
     cfg = bundle.model
@@ -1954,16 +2017,9 @@ def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=device).manual_seed(seed)
     params, init_ms = synced_ms(lambda: tf.init_params(cfg, gen, device))
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
-        else:
-            leaves.append(t)
-
-    walk(params)
+    # no recursive closure here: its reference cycle would keep the 16 GB
+    # of weights alive past the phase, until a full garbage collection
+    leaves = tree_leaves(params)
     rec = {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
            "cache_dtype": cache_dtype, "init_ms": init_ms,
@@ -2080,6 +2136,231 @@ def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
           f"int8 up-projection {rec['int8_rel_err_vs_bf16']:.4f} from bf16")
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return rec, {"small": small, "big": big}
+
+
+# ---------------------------------------------------------------------------
+# phase I: LM training on the card
+# ---------------------------------------------------------------------------
+def bits_digest(t: torch.Tensor) -> tuple[int, int]:
+    """An exact digest of a tensor's bits: the sum and the sum of squares
+    of its elements' bit patterns as int64 (wrapping), a slab at a time.
+    Integer sums do not depend on their order."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    flat = t.reshape(-1).view(view[t.element_size()])
+    total = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for lo in range(0, flat.numel(), 1 << 26):
+        c = flat[lo:lo + (1 << 26)].long()
+        total += torch.stack([c.sum(), (c * c).sum()])
+    return tuple(total.tolist())
+
+
+def state_tensors(state) -> list:
+    """Every tensor of an LM `TrainState`, in a fixed order."""
+    from repro_torch.utils import tree_leaves
+
+    moments = [t for q in tree_leaves([state.opt.mu, state.opt.nu])
+               for t in ((q.values, q.scales) if hasattr(q, "scales")
+                         else (q,))]
+    return (tree_leaves(state.params) + moments
+            + [state.opt.count, state.step] + tree_leaves(state.err_buf))
+
+
+def attention_grad_check(device, seed: int) -> dict:
+    """I.2: the blocked attention's custom backward at one Qwen3-8B
+    layer's shape (B 2, 8 kv heads x 4 queries each, S 2048, hd 128,
+    float32) against autograd through the materialized softmax, on the
+    card; then the forward + backward timed with TF32 off (as the port
+    runs, for parity with the float32 reference) and on."""
+    from repro_torch.models.attention import gqa_blocked_attention
+
+    B, R, G, S, hd = I_MB, 8, 4, I_SEQ, 128
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=device)
+                     for shape in ((B, R, G, S, hd), (B, R, S, hd),
+                                   (B, R, S, hd), (B, R, G, S, hd)))
+
+    def grads(attn):
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        return torch.autograd.grad(attn(qq, kk, vv), (qq, kk, vv), dout)
+
+    def blocked(qq, kk, vv):
+        return gqa_blocked_attention(qq, kk, vv, causal=True)
+
+    def materialized(qq, kk, vv):
+        s = torch.einsum("brgqd,brkd->brgqk", qq, kk) * hd**-0.5
+        causal = torch.ones(S, S, dtype=torch.bool, device=device).triu(1)
+        p = torch.softmax(s.masked_fill(causal, float("-inf")), dim=-1)
+        return torch.einsum("brgqk,brkd->brgqd", p, vv)
+
+    got, want = grads(blocked), grads(materialized)
+    rec = {"shape": f"B={B} R={R} G={G} S={S} hd={hd} f32 causal"}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rec[f"{name}_max_abs_err"] = err
+        rec[f"{name}_max_abs"] = scale
+        check(err <= I_ATTN_TOL * scale, f"I.2 {name}: max abs err {err} "
+              f"against {I_ATTN_TOL} x {scale}")
+    del got, want
+    rec["fwd_bwd_ms_tf32_off"] = synced_ms(lambda: grads(blocked))[1]
+    rec["materialized_fwd_bwd_ms"] = synced_ms(lambda: grads(materialized))[1]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        grads(blocked)  # warm-up of the TF32 GEMMs
+        rec["fwd_bwd_ms_tf32_on"] = synced_ms(lambda: grads(blocked))[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return rec
+
+
+def lm_train_phase(seed: int, device, ops) -> dict:
+    """Phase I: the LM train step (`distributed.training.make_train_step`)
+    on Qwen3-8B at full width, its depth cut to `I_LAYERS`: I.1 the
+    chunked loss against the unchunked one, I.2 the attention backward,
+    I.5 two runs of one step from one state, I.3 a stream of steps (times,
+    `mfu`, a profiled step, peak memory), I.4 int8 states and gradient
+    compression against the float32 run. No port kernel launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm_data import (
+        PrefetchIterator,
+        synthetic_token_stream,
+    )
+    from repro_torch.distributed import training as tr
+    from repro_torch.utils import tree_leaves
+
+    t_phase = time.perf_counter()
+    bundle = get_arch(LM_ARCH)
+    cfg = bundle.model.with_(n_layers=I_LAYERS)
+    pcfg = bundle.parallel.with_(grad_accum={"phase_i": I_ACCUM})
+    check(pcfg.remat == "block" and pcfg.logit_chunk == 1024
+          and pcfg.opt_state_dtype == "float32",
+          f"{LM_ARCH} bundle's training plan changed: {pcfg}")
+    shape = ShapeConfig("phase_i", "train", I_SEQ, I_MB * I_ACCUM)
+    tokens = I_MB * I_ACCUM * I_SEQ
+
+    def stream():
+        for item in synthetic_token_stream(cfg.vocab_size, I_SEQ,
+                                           I_MB * I_ACCUM, seed=seed):
+            yield {k: item[k].reshape(I_ACCUM, I_MB, I_SEQ)
+                   for k in ("tokens", "labels")}
+
+    data = PrefetchIterator(stream(), depth=2)
+    batches = [data.get(timeout=WAIT_S) for _ in range(I_STEPS + 1)]
+
+    def fresh(pc):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return tr.init_train_state(cfg, pc, gen, device)
+
+    gc.collect()  # nothing of the earlier phases' models may linger
+    torch.cuda.empty_cache()
+    rec_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state0, rec_init_ms = synced_ms(lambda: fresh(pcfg))
+    params = state0.params
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_matmul = n_params - params["embed"].numel()
+    # PaLM's model flops (appendix B): 6 N a token for the weights N that
+    # multiply (all but the input embedding's gather), and 12 L H hd S a
+    # token for attention; remat's recomputation is not counted
+    flops = tokens * (6 * n_matmul + 12 * cfg.n_layers * cfg.n_heads
+                      * cfg.head_dim * I_SEQ)
+    rec = {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "seq": I_SEQ, "microbatch": I_MB,
+           "accum": I_ACCUM, "tokens_per_step": tokens,
+           "n_params": n_params, "n_params_matmul": n_matmul,
+           "model_flops_per_step": flops, "init_ms": rec_init_ms,
+           "bytes_before": rec_base,
+           "schedule": I_SCHEDULE,
+           # the reckoning the depth was cut by: bf16 params 2 B and f32
+           # moments 8 B, old and new side by side in the out-of-place
+           # update, f32 gradients 4 B and about as much in temporaries
+           "peak_bytes_reckoned": n_params * (2 * (2 + 8) + 4 + 4)}
+
+    # I.1: chunked against unchunked loss, on the same params and batch
+    mb0 = {k: torch.from_numpy(v[0]).to(device)
+           for k, v in batches[0].items()}
+    with torch.no_grad():
+        chunked = float(tr.lm_loss(params, cfg, pcfg, mb0)[0])
+        full = float(tr.lm_loss(params, cfg, pcfg.with_(logit_chunk=0),
+                                mb0)[0])
+    rec.update(loss_chunked=chunked, loss_unchunked=full)
+    check(np.isfinite(chunked) and abs(chunked - full) <= I_CHUNK_RTOL
+          * abs(full), f"I.1 chunked loss {chunked} != unchunked {full}")
+
+    # I.2: the attention backward at one layer's shape
+    rec["attention"] = attention_grad_check(device, seed + 7)
+
+    # I.5 (and the stream's first step): two runs of one step from one
+    # state give the same bits: the params compared whole, every other
+    # tensor by its digest
+    step = tr.make_train_step(cfg, pcfg, shape, **I_SCHEDULE)
+    s1, m1 = step(state0, batches[0])
+    kept = tree_leaves(s1.params)
+    digests = [bits_digest(t) for t in state_tensors(s1)[len(kept):]]
+    metrics1 = {k: float(v) for k, v in m1.items()}
+    del s1, m1
+    state, m2 = step(state0, batches[0])
+    del state0, params
+    metrics2 = {k: float(v) for k, v in m2.items()}
+    check(all(np.isfinite(v) for v in metrics1.values()),
+          f"I.1 step metrics {metrics1}")
+    check(metrics1 == metrics2, f"I.5 metrics {metrics1} != {metrics2}")
+    check(all(torch.equal(a, b) for a, b in
+              zip(kept, tree_leaves(state.params))),
+          "I.5 two runs of one step gave other params")
+    check(digests == [bits_digest(t) for t in
+                      state_tensors(state)[len(kept):]],
+          "I.5 two runs of one step gave other optimizer state")
+    del kept
+    rec["step0"] = metrics1
+
+    # I.3: the stream
+    losses, ms = [metrics1["loss"]], []
+    for batch in batches[1:]:
+        (state, m), t = synced_ms(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(
+            m["grad_norm"])), f"I.3 step {len(losses) - 1}: {m}")
+        ms.append(t)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["profile"] = device_profile(lambda: step(state, batches[-1]),
+                                    I_PROFILE_GROUPS, n_top=12)
+    del state
+    torch.cuda.empty_cache()
+    med = statistics.median(ms)
+    rec.update(losses=losses, step_ms=ms, ms_per_step=med,
+               tokens_per_s=tokens / med * 1e3,
+               mfu=flops / (med / 1e3) / BF16_TC_FLOPS,
+               loss_fall=losses[0] - statistics.mean(losses[-5:]))
+    check(rec["loss_fall"] >= I_FALL, f"I.3 loss fell {rec['loss_fall']:.4f}"
+          f" (< {I_FALL}): {losses}")
+
+    # I.4: int8 states, and gradient compression, against the f32 run
+    for name, pc in (("int8_states", pcfg.with_(opt_state_dtype="int8")),
+                     ("grad_compression",
+                      pcfg.with_(grad_compression=True))):
+        torch.cuda.reset_peak_memory_stats()
+        vstep = tr.make_train_step(cfg, pc, shape, **I_SCHEDULE)
+        st, vl = fresh(pc), []
+        check((st.err_buf is not None) == pc.grad_compression,
+              f"I.4 {name} error buffer")
+        for batch in batches[:I_VARIANT_STEPS]:
+            st, m = vstep(st, batch)
+            vl.append(float(m["loss"]))
+        del st
+        torch.cuda.empty_cache()
+        gap = max(abs(a - b) for a, b in zip(vl, losses))
+        rec[name] = {"losses": vl, "max_gap_to_f32": gap,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        check(gap <= I_VARIANT_GAP, f"I.4 {name}: losses {vl} against "
+              f"f32 {losses[:I_VARIANT_STEPS]}")
+    rec["launches"] = ops.launch_counts()
+    check(set(rec["launches"].values()) == {0},
+          f"a port kernel launched on the LM train path: {rec['launches']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
 
 
 def flash_entries(gen, device, ops, ref, launches: int):
@@ -2593,6 +2874,41 @@ def main(argv=None) -> int:
           f"{lm_rec['int8_rel_err_vs_bf16']:.4f}, max memory allocated "
           f"{lm_rec['max_memory_allocated']} B", flush=True)
 
+    # -- phase I: LM training, Qwen3-8B at full width, depth cut ----------
+    lm_train = lm_train_phase(args.seed, device, ops)
+    att = lm_train["attention"]
+    print(f"phase I.1 ({LM_ARCH} at full width, {lm_train['layers']} of "
+          f"{lm_rec['layers']} layers, bf16, f32 AdamW, remat block, logit "
+          f"chunk 1024; {card}): {lm_train['n_params']} params, loss "
+          f"chunked {lm_train['loss_chunked']:.6f} / unchunked "
+          f"{lm_train['loss_unchunked']:.6f}, step 0 {lm_train['step0']}",
+          flush=True)
+    print(f"phase I.2 attention backward ({att['shape']}) vs autograd "
+          f"through the materialized softmax: max abs err dq "
+          f"{att['dq_max_abs_err']:.3g} dk {att['dk_max_abs_err']:.3g} dv "
+          f"{att['dv_max_abs_err']:.3g}; fwd+bwd "
+          f"{att['fwd_bwd_ms_tf32_off']:.2f} ms (TF32 off), "
+          f"{att['fwd_bwd_ms_tf32_on']:.2f} ms (TF32 on), "
+          f"materialized {att['materialized_fwd_bwd_ms']:.2f} ms", flush=True)
+    print(f"phase I.3 ({I_STEPS} steps of {lm_train['tokens_per_step']} "
+          f"tokens: microbatch {I_MB} x {I_SEQ}, accum {I_ACCUM}; {card}): "
+          f"{lm_train['ms_per_step']:.1f} ms/step (median), "
+          f"{lm_train['tokens_per_s']:.0f} tokens/s, mfu "
+          f"{lm_train['mfu']:.4f}, loss {lm_train['losses'][0]:.4f} -> "
+          f"{lm_train['losses'][-1]:.4f} (fell {lm_train['loss_fall']:.4f}),"
+          f" peak memory {lm_train['peak_bytes']} B (reckoned "
+          f"{lm_train['peak_bytes_reckoned']} B; {lm_train['bytes_before']} "
+          f"B held by earlier phases)", flush=True)
+    for name in ("int8_states", "grad_compression"):
+        v = lm_train[name]
+        print(f"phase I.4 {name.replace('_', ' ')}: losses "
+              f"{[round(x, 4) for x in v['losses']]}, max gap to f32 "
+              f"{v['max_gap_to_f32']:.4f}, peak memory {v['peak_bytes']} B",
+              flush=True)
+    print(f"phase I.5: two runs of one step from one state gave equal bits; "
+          f"launches {lm_train['launches']}; phase I took "
+          f"{lm_train['seconds']:.1f} s", flush=True)
+
     for name, prof in (("A", a["profile"]), ("B", b["profile"])):
         print(f"phase {name} profile, one serve step: {prof['kernels']} "
               f"kernels ({prof['launches']} of the port's), "
@@ -2604,6 +2920,12 @@ def main(argv=None) -> int:
               f"{prof['device_ms']:.1f} ms on the card in {prof['wall_ms']:.1f}"
               f" ms (idle share {prof['idle_share']}), top {prof['top'][:3]}",
               flush=True)
+    prof = lm_train["profile"]
+    print(f"phase I profile, one train step: {prof['kernels']} kernels, "
+          f"{prof['device_ms']:.1f} ms on the card in {prof['wall_ms']:.1f} "
+          f"ms (idle share {prof['idle_share']}), ms by kind "
+          f"{ {k: round(v, 1) for k, v in prof['groups_ms'].items()} }, top "
+          f"{prof['top']}", flush=True)
 
     # -- phase C: each kernel against its plain version ---------------------
     kernels = []
@@ -2732,7 +3054,8 @@ def main(argv=None) -> int:
 
     for phase in (a, b):
         phase.pop("results")
-    record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_e=e,
+    record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_i=lm_train,
+                  phase_e=e,
                   phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",

@@ -8,13 +8,15 @@ catalog (`serving.catalog.LiveCatalog`) or a tiered out-of-core one
 (`models.recsys` losses, `optim.adamw`, `distributed.training`,
 `distributed.fault_tolerance.TrainLoop`) and keeps a live catalog fresh
 while it serves (`serving.online.OnlineTrainer`, checked by
-`serving.shadow.ShadowHarness`); and serves the dense LM family
-(`serving.engine`: `prefill`, `decode_step`, `LMServingEngine.generate`;
-`launch.serve` is its CLI). Every TPU kernel of the reference has a CUDA
-C++ counterpart under `kernels/csrc` — dense Hamming distances, the
-streaming fixed-radius NNS, the int8 embedding pool, flash attention and
-the int8 matmul — built with `nvcc` at first use (`kernels/build.py`) and
-bound with `ctypes`.
+`serving.shadow.ShadowHarness`); and serves and trains the dense LM
+family (`serving.engine`: `prefill`, `decode_step`,
+`LMServingEngine.generate`, with `launch.serve` its CLI;
+`distributed.training.make_train_step` over the blocked attention's
+custom backward, with `launch.train` its CLI). Every TPU kernel of the
+reference has a CUDA C++ counterpart under `kernels/csrc` — dense
+Hamming distances, the streaming fixed-radius NNS, the int8 embedding
+pool, flash attention and the int8 matmul — built with `nvcc` at first
+use (`kernels/build.py`) and bound with `ctypes`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; a CPU
 tensor goes to each kernel's plain PyTorch version (`kernels/ref.py`).

@@ -1,9 +1,10 @@
-"""Config dataclasses of the LM side: architecture, parallelism plan, bundle.
+"""Config dataclasses of the LM side: architecture, parallelism plan,
+train / serve shapes, bundle.
 
 A copy of `repro/configs/base.py` (the port imports nothing of `repro`).
 Every `ModelConfig` field is kept, so a config carries across unchanged;
 fields of families the port does not serve yet (moe, ssm, hybrid, audio,
-vlm) are only read by `param_count_dense`.
+vlm) are only read by `param_count_dense` and `active_param_count`.
 """
 from __future__ import annotations
 
@@ -90,7 +91,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How an arch maps onto devices; the port reads `kv_cache_dtype`."""
+    """How an arch maps onto devices. The port reads `kv_cache_dtype`
+    (serving) and `remat`, `opt_state_dtype`, `grad_accum`, `logit_chunk`
+    and `grad_compression` (the LM train step)."""
 
     fsdp: bool = False
     seq_shard: bool = False
@@ -110,6 +113,22 @@ class ParallelConfig:
 
     def with_(self, **kw) -> "ParallelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +160,19 @@ def param_count_dense(cfg: ModelConfig) -> int:
     if cfg.family == "audio":
         n = cfg.n_codebooks * v * d * 2
     return n + cfg.n_layers * (per + _mlp_params(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k experts only), for 6 N_active D."""
+    if not cfg.n_experts:
+        return param_count_dense(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    n = v * d * 2
+    moe_layers = cfg.n_layers // cfg.moe_layer_step
+    dense_layers = cfg.n_layers - moe_layers
+    per_moe_active = (cfg.moe_top_k + cfg.n_shared_experts) * _mlp_params(cfg)
+    return (n + cfg.n_layers * _attn_params(cfg)
+            + dense_layers * _mlp_params(cfg) + moe_layers * per_moe_active)
 
 
 def _attn_params(cfg: ModelConfig) -> int:

@@ -40,17 +40,21 @@ def _moment(leaf, device):
 
 def train_state_from_numpy(state, device=None) -> TrainState:
     """A reference `TrainState` (attributes ``params``, ``opt`` with
-    ``mu``, ``nu`` and ``count``, and ``step``; leaves numpy or anything
-    `np.array` takes) as the port's, on `device` (default `cuda`). int8
-    moments arrive as `QuantState`s, bfloat16 ones with the same bits."""
+    ``mu``, ``nu`` and ``count``, ``step``, and optionally ``err_buf``;
+    leaves numpy or anything `np.array` takes) as the port's, on `device`
+    (default `cuda`): the RecSys state or the LM's, bfloat16 or float32
+    parameters. int8 moments arrive as `QuantState`s, bfloat16 ones and
+    bfloat16 parameters with the same bits."""
     device = resolve_device(device)
     opt = state.opt
+    err_buf = getattr(state, "err_buf", None)
     return TrainState(
         params=params_from_numpy(state.params, device),
         opt=AdamWState(mu=tree_map(lambda x: _moment(x, device), opt.mu),
                        nu=tree_map(lambda x: _moment(x, device), opt.nu),
                        count=to_device(opt.count, device)),
-        step=to_device(state.step, device))
+        step=to_device(state.step, device),
+        err_buf=None if err_buf is None else to_device(err_buf, device))
 
 
 # an LM tree of `repro`'s `models/transformer.py` `init_params` (stacked

@@ -6,7 +6,11 @@ arrays). Bit `i` of a word is projection `32 * word + i`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.utils import cdiv
 
 WORD_BITS = 32
 
@@ -45,3 +49,14 @@ def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
 def lsh_signature(x: torch.Tensor, projections: torch.Tensor) -> torch.Tensor:
     """SRP signature of x (..., dim) -> packed (..., n_bits/32) int32."""
     return pack_bits(x @ projections >= 0.0)
+
+
+def signature_words(n_bits: int) -> int:
+    return cdiv(n_bits, WORD_BITS)
+
+
+def expected_hamming(cos_sim: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """E[hamming] of SRP signatures at cosine similarity `cos_sim`: n_bits
+    times the angle over pi (the LSH collision bound)."""
+    theta = torch.arccos(torch.clamp(torch.as_tensor(cos_sim), -1.0, 1.0))
+    return n_bits * theta / math.pi

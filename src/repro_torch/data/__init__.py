@@ -1,1 +1,3 @@
-"""Data pipelines of the port: the synthetic RecSys datasets."""
+"""Data pipelines of the port: the synthetic RecSys datasets
+(`synthetic.py`) and the LM token stream with its prefetcher
+(`lm_data.py`)."""

@@ -1,10 +1,14 @@
-"""GQA attention with qk-norm and RoPE: blocked or flash prefill, cached
-decode into a bfloat16 or int8 KV cache.
+"""GQA attention with qk-norm and RoPE: the blocked (flash-style)
+attention of training and prefill with its custom backward, the flash
+kernel's prefill, and cached decode into a bfloat16 or int8 KV cache.
 
-The port of `repro/models/attention.py` (inference only: the custom VJP of
-the blocked attention is training and waits). Heads are grouped as in the
+The port of `repro/models/attention.py`. Heads are grouped as in the
 reference: kv heads are repeated `kv_repeat` times to `rep_kv` heads, and
-q is viewed as (B, rep_kv, G, S, hd) with G = n_heads / rep_kv.
+q is viewed as (B, rep_kv, G, S, hd) with G = n_heads / rep_kv. The
+blocked attention's backward is the reference's custom VJP
+(`_BlockedAttention`): it saves O(S * hd) and recomputes the scores a kv
+block at a time, in plain PyTorch as the reference's is plain `jnp` (the
+reference trains through it, never through its Pallas flash kernel).
 
 int8 KV caches hold int8 values with one float32 scale per (position,
 head) row over hd — the paper's ET quantization applied to the cache.
@@ -77,14 +81,15 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def gqa_blocked_attention(q5, k, v, *, causal: bool = True,
-                          q_offset: int = 0, block_k: int = 1024):
-    """Online-softmax GQA attention over kv blocks of `block_k`, forward.
+def _blocked_forward(q5, k, v, causal: bool, q_offset: int, block_k: int):
+    """The reference's `_flash_fwd_impl`: (out (B, R, G, Sq, hd) f32,
+    lse (B, R, G, Sq) f32, the log-sum-exp of each row's scaled scores).
 
-    q5 (B, rep_kv, G, Sq, hd), k/v (B, rep_kv, Sk, hd) -> (B, rep_kv, G,
-    Sq, hd) float32, never materializing more than one block of scores:
-    the forward of the reference's `_flash_fwd_impl`, -inf masking and the
-    carried max guarded where a row has no valid key yet.
+    One kv block of `block_k` at a time (the last one shorter where `Sk`
+    is not a multiple), -inf masking and the carried max guarded where a
+    row has no valid key yet. The in-place ops act on this routine's own
+    temporaries, and it runs without autograd (under `no_grad`, or as
+    `_BlockedAttention.forward`).
     """
     B, R, G, Sq, hd = q5.shape
     Sk = k.shape[2]
@@ -98,9 +103,7 @@ def gqa_blocked_attention(q5, k, v, *, causal: bool = True,
         kb = k[:, :, lo:lo + block_k].float()
         vb = v[:, :, lo:lo + block_k].float()
         s = torch.einsum("brgqd,brkd->brgqk", qf, kb)
-        cols = lo + torch.arange(kb.shape[2], device=dev)[None, :]
-        masked = (cols > rows) if causal else torch.zeros_like(
-            cols, dtype=torch.bool)
+        masked = _block_masked(rows, lo, kb.shape[2], causal)
         s.masked_fill_(masked, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -110,7 +113,75 @@ def gqa_blocked_attention(q5, k, v, *, causal: bool = True,
         acc = acc * alpha[..., None] + torch.einsum("brgqk,brkd->brgqd", p,
                                                     vb)
         m = m_safe
-    return acc / l.clamp_min(1e-30)[..., None]
+    l = l.clamp_min(1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+def _block_masked(rows, lo: int, width: int, causal: bool):
+    """(Sq, width) True where key `lo + j` is masked for query row `i`."""
+    cols = lo + torch.arange(width, device=rows.device)[None, :]
+    if causal:
+        return cols > rows
+    return torch.zeros_like(cols, dtype=torch.bool)
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """The reference's `_flash_attn` custom VJP. Forward saves only (q5,
+    k, v, out, lse), O(S * hd); backward recomputes each kv block's
+    probabilities from `lse` and sums in float32 (`_flash_attn_bwd`).
+    `causal`, `q_offset` and `block_k` are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q5, k, v, causal, q_offset, block_k):
+        out, lse = _blocked_forward(q5, k, v, causal, q_offset, block_k)
+        ctx.save_for_backward(q5, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q5, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, block_k = ctx.args
+        hd = q5.shape[-1]
+        Sq, Sk = q5.shape[3], k.shape[2]
+        scale = hd**-0.5
+        qf = q5.float() * scale
+        doutf = dout.float()
+        rows = torch.arange(Sq, device=q5.device)[:, None] + q_offset
+        delta = (doutf * out.float()).sum(-1)  # (B, R, G, Sq)
+        dq = torch.zeros_like(qf)
+        dks, dvs = [], []
+        for lo in range(0, Sk, min(block_k, Sk)):
+            kb = k[:, :, lo:lo + block_k].float()
+            vb = v[:, :, lo:lo + block_k].float()
+            s = torch.einsum("brgqd,brkd->brgqk", qf, kb)
+            masked = _block_masked(rows, lo, kb.shape[2], causal)
+            p = torch.exp(s.masked_fill(masked, float("-inf"))
+                          - lse[..., None]).masked_fill(masked, 0.0)
+            dvs.append(torch.einsum("brgqk,brgqd->brkd", p, doutf))
+            dp = torch.einsum("brgqd,brkd->brgqk", doutf, vb)
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("brgqk,brkd->brgqd", ds, kb) * scale
+            dks.append(torch.einsum("brgqk,brgqd->brkd", ds, qf))
+        return (dq.to(q5.dtype), torch.cat(dks, 2).to(k.dtype),
+                torch.cat(dvs, 2).to(v.dtype), None, None, None)
+
+
+def gqa_blocked_attention(q5, k, v, *, causal: bool = True,
+                          q_offset: int = 0, block_k: int = 1024):
+    """Online-softmax GQA attention over kv blocks of `block_k`.
+
+    q5 (B, rep_kv, G, Sq, hd), k/v (B, rep_kv, Sk, hd) -> (B, rep_kv, G,
+    Sq, hd) float32, never materializing more than one block of scores.
+    Where autograd records (an input requires grad) it runs as
+    `_BlockedAttention`, whose backward recomputes the scores a block at
+    a time from the saved log-sum-exp; otherwise (prefill) the same
+    forward routine runs alone.
+    """
+    if torch.is_grad_enabled() and (q5.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _BlockedAttention.apply(q5, k, v, causal, q_offset, block_k)
+    return _blocked_forward(q5, k, v, causal, q_offset, block_k)[0]
 
 
 def _quantize_kv(x: torch.Tensor):

@@ -35,6 +35,46 @@ def normal(gen: torch.Generator, shape: tuple, scale: float, dtype,
 
 
 # ---------------------------------------------------------------------------
+# gathers
+# ---------------------------------------------------------------------------
+class _GatherRows(torch.autograd.Function):
+    """`table[ids]` for in-range long ids, with a deterministic backward:
+    the output gradient's rows are stably sorted by id and summed a
+    segment (one table row) at a time, in batch order. Nothing in it waits
+    for the card: the segment lengths are counted on the device."""
+
+    @staticmethod
+    def forward(table, ids):
+        return table[ids]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ids = inputs
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        rows = grad.reshape(flat.numel(), -1)[order]
+        lengths = torch.zeros(ctx.n_rows, dtype=torch.long,
+                              device=flat.device).index_add_(
+            0, flat, torch.ones_like(flat))
+        sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+        return sums.reshape((ctx.n_rows,) + grad.shape[ids.dim():]), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]` (ids long and in range) whose gradient is the same bits
+    on every run: PyTorch's own backward of an index accumulates repeated
+    ids in a varying order on the CPU."""
+    return _GatherRows.apply(table, ids)
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 def init_rms_norm(dim: int, dtype, device, lead: tuple = ()) -> torch.Tensor:

@@ -16,12 +16,12 @@ them with `jax.value_and_grad`). Serving quantizes every table to int8
 (`serving/recsys_engine.py`). Gathers clamp out-of-range ids as JAX's do
 (negative ids count from the end first); torch would raise.
 
-The gradient of a table gather is a sorted segment sum (`_Gather`): each
-row's gradient adds up the rows of its ids in their batch order, one
-sequential sum a row, on the CPU as on the card. PyTorch's own backward of
-`table[ids]` accumulates duplicates with a parallel scatter on the CPU, in
-an order that varies from run to run, and a training restart must repeat
-bit for bit.
+The gradient of a table gather is a sorted segment sum
+(`layers.gather_rows`): each row's gradient adds up the rows of its ids in
+their batch order, one sequential sum a row, on the CPU as on the card.
+PyTorch's own backward of `table[ids]` accumulates duplicates with a
+parallel scatter on the CPU, in an order that varies from run to run, and
+a training restart must repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Mapping, NamedTuple
 
 import torch
 
+from repro_torch.models.layers import gather_rows
 from repro_torch.utils import resolve_device
 
 EMBED_DIM = 32  # the paper's ET dimension (32 x int8 = one 256-bit CMA row)
@@ -42,39 +43,9 @@ def _ids(ids: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
 
 
-class _Gather(torch.autograd.Function):
-    """`table[ids]` for in-range long ids, with a deterministic backward:
-    the output gradient's rows are stably sorted by id and summed a
-    segment (one table row) at a time, in batch order. Nothing in it waits
-    for the card: the segment lengths are counted on the device."""
-
-    @staticmethod
-    def forward(table, ids):
-        return table[ids]
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        table, ids = inputs
-        ctx.save_for_backward(ids)
-        ctx.n_rows = table.shape[0]
-
-    @staticmethod
-    def backward(ctx, grad):
-        (ids,) = ctx.saved_tensors
-        flat = ids.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        rows = grad.reshape(flat.numel(), -1)[order]
-        lengths = torch.zeros(ctx.n_rows, dtype=torch.long,
-                              device=flat.device).index_add_(
-            0, flat, torch.ones_like(flat))
-        sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
-                                    unsafe=True)
-        return sums.reshape((ctx.n_rows,) + grad.shape[ids.dim():]), None
-
-
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """`table[ids]` with JAX's gather semantics (`_ids`)."""
-    return _Gather.apply(table, _ids(ids, table.shape[0]))
+    return gather_rows(table, _ids(ids, table.shape[0]))
 
 
 def _normal(generator: torch.Generator, shape, scale: float,

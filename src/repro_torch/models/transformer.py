@@ -1,21 +1,28 @@
 """Config-driven decoder LM, dense family: qwen3-8b (qk-norm), qwen2.5-3b
 (qkv bias, tied embeddings), chatglm3-6b (partial rotary).
 
-The port of `repro/models/transformer.py` for inference. Layer params are
-stacked on a leading `n_layers` axis as in the reference; its
+The port of `repro/models/transformer.py` for training and serving. Layer
+params are stacked on a leading `n_layers` axis as in the reference; its
 `jax.lax.scan` over layers is a Python loop that indexes the stacked
-tensors. The MoE, SSM, hybrid, audio and VLM families raise
-`NotImplementedError` (ROADMAP.md, queue A.5).
+tensors. `forward(mode="train")` runs under autograd, each layer
+checkpointed with `remat="block"` (the reference's `jax.checkpoint` of its
+scan body); prefill and decode run without grad. The token embedding's
+gather has a deterministic backward (`layers.gather_rows`). The MoE, SSM,
+hybrid, audio and VLM families raise `NotImplementedError` (ROADMAP.md,
+queue A.5).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import KVCacheView, attention, init_attention
 from repro_torch.models.layers import (
+    gather_rows,
     init_mlp,
     init_rms_norm,
     mlp,
@@ -103,7 +110,7 @@ def _stack(views: list) -> KVCacheView:
 # ---------------------------------------------------------------------------
 def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     _dense_only(cfg)
-    return params["embed"][batch["tokens"].long()]  # (B, S, D)
+    return gather_rows(params["embed"], batch["tokens"].long())  # (B, S, D)
 
 
 def unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -130,7 +137,6 @@ def default_positions(cfg: ModelConfig, batch: dict, B: int, S: int,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-@torch.no_grad()
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -141,14 +147,28 @@ def forward(
     cache_index=None,
     cache_len: int | None = None,
     cache_dtype: str = "bfloat16",
-    remat: str = "none",  # training only; accepted for the signature
+    remat: str = "none",  # train: none | block (checkpoint each layer)
     attn_impl: str = "blocked",
     logits_mode: str = "auto",  # auto | none | last | all
 ) -> ModelOutput:
-    """The reference's `forward` for the dense family. Decode updates
-    `caches` in place and returns them; `batch` values may be numpy arrays
-    or tensors and move to the params' device."""
+    """The reference's `forward` for the dense family. Train mode records
+    autograd (the blocked attention's custom backward; `remat="block"`
+    recomputes each layer's activations in the backward); prefill and
+    decode run without grad, and decode updates `caches` in place and
+    returns them. `batch` values may be numpy arrays or tensors and move
+    to the params' device."""
     _dense_only(cfg)
+    if remat not in ("none", "block"):
+        raise ValueError(f"remat {remat!r}: none or block")
+    grad = contextlib.nullcontext() if mode == "train" else torch.no_grad()
+    with grad:
+        return _forward(params, cfg, batch, mode, caches, cache_index,
+                        cache_len, cache_dtype, remat, attn_impl,
+                        logits_mode)
+
+
+def _forward(params, cfg, batch, mode, caches, cache_index, cache_len,
+             cache_dtype, remat, attn_impl, logits_mode) -> ModelOutput:
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     B, S = batch["tokens"].shape
@@ -158,7 +178,7 @@ def forward(
 
     x, caches = _transformer_stack(params, cfg, x, positions, mode, caches,
                                    cache_index, cache_len, cache_dtype,
-                                   attn_impl)
+                                   remat, attn_impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     if logits_mode == "auto":
@@ -173,10 +193,24 @@ def forward(
                        aux_loss=torch.zeros((), device=dev), caches=caches)
 
 
+def _train_block(x, p, cfg, positions, attn_impl):
+    return _attn_mlp_block(p, x, cfg, positions, attn_impl=attn_impl)[0]
+
+
 def _transformer_stack(params, cfg, x, positions, mode, caches, cache_index,
-                       cache_len, cache_dtype, attn_impl):
+                       cache_len, cache_dtype, remat, attn_impl):
     """The layers in order; prefill stacks the new caches, decode writes
-    into `caches` (per-layer views of the stacked tensors) in place."""
+    into `caches` (per-layer views of the stacked tensors) in place, and
+    train mode checkpoints each layer under `remat="block"`."""
+    if mode == "train":
+        for i in range(cfg.n_layers):
+            p = _index(params["layers"], i)
+            if remat == "block":
+                x = checkpoint(_train_block, x, p, cfg, positions,
+                               attn_impl, use_reentrant=False)
+            else:
+                x = _train_block(x, p, cfg, positions, attn_impl)
+        return x, None
     made = []
     for i in range(cfg.n_layers):
         x, new_cache = _attn_mlp_block(

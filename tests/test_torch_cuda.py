@@ -17,7 +17,8 @@ must be equal; the pool's floats are held to 1e-6 of the pooled
 magnitudes, as there. The flash
 kernel is held to 2e-5 in float32 and 2e-2 in bfloat16 (the Pallas
 kernel's tolerances in `tests/test_kernels.py`; both sides accumulate in
-float32 in another order), the int8 matmul bit for bit.
+float32 in another order), the int8 matmul bit for bit. The LM train step (reduced qwen3-8b) and the blocked
+attention's custom backward are held against their CPU runs.
 """
 import contextlib
 import os
@@ -32,9 +33,13 @@ from repro_torch.core.nns import (
     build_block_summary,
     fixed_radius_nns,
 )
+from repro_torch.configs.base import ParallelConfig, ShapeConfig
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.configs.registry import get_arch
 from repro_torch.distributed import training
 from repro_torch.kernels import build, ops, ref
 from repro_torch.data import synthetic
+from repro_torch.models import attention as tattn
 from repro_torch.models.recsys import default_youtubednn_config
 from repro_torch.serving import (
     LiveCatalog,
@@ -44,7 +49,7 @@ from repro_torch.serving import (
     rebuild_from_params,
 )
 from repro_torch.serving import recsys_engine as trs
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 POOL_RTOL = 1e-6
@@ -1124,3 +1129,110 @@ def test_bank_scan_merge_equals_local_plan_on_the_card(cuda, n, n_banks,
         assert (a is None) == (b is None) == (p is None)
         assert a is None or (torch.equal(a, b) and torch.equal(a, p))
     assert (got.blocks_touched is not None) == bool(block_rows)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+def _lm_setup(accum=2, **kw):
+    cfg = reduce_config(get_arch("qwen3-8b").model).with_(n_layers=2, **kw)
+    pcfg = ParallelConfig(remat="block", logit_chunk=8,
+                          grad_accum={"tiny": accum})
+    shape = ShapeConfig("tiny", "train", 16, 2 * accum)
+    return cfg, pcfg, training.make_train_step(cfg, pcfg, shape,
+                                               base_lr=1e-2, warmup=2,
+                                               total_steps=20)
+
+
+def _lm_batch(vocab, accum, seed, high=None):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, high or vocab, (accum, 2, 17))
+    return {"tokens": toks[..., :-1].astype(np.int32),
+            "labels": toks[..., 1:].astype(np.int32)}
+
+
+def _to(state, device):
+    """A float32-state `TrainState` (no error buffer) on `device`."""
+    opt = state.opt
+    return training.TrainState(
+        params=tree_map(lambda t: t.to(device), state.params),
+        opt=type(opt)(mu=tree_map(lambda t: t.to(device), opt.mu),
+                      nu=tree_map(lambda t: t.to(device), opt.nu),
+                      count=opt.count.to(device)),
+        step=state.step.to(device))
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """Five steps, each from the CPU's state carried to the card: loss and
+    grad norm within rtol 1e-5, parameters within 1e-6 in all but 0.1% of
+    entries and within 1e-3 (a tenth of lr) everywhere, the tolerances
+    the CPU port is held to against the reference
+    (`tests/test_torch_lm_training.py`)."""
+    cfg, pcfg, step = _lm_setup()
+    cpu = training.init_train_state(cfg, pcfg,
+                                     torch.Generator().manual_seed(0), "cpu")
+    for i in range(5):
+        batch = _lm_batch(cfg.vocab_size, 2, seed=i)
+        gpu, gm = step(_to(cpu, cuda), batch)
+        cpu, cm = step(cpu, batch)
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(gm[key]), float(cm[key]),
+                                       rtol=1e-5, err_msg=f"{key} {i}")
+        got = torch.cat([t.cpu().ravel() for t in tree_leaves(gpu.params)])
+        want = torch.cat([t.ravel() for t in tree_leaves(cpu.params)])
+        diff = (got - want).abs()
+        assert (diff > 1e-6).float().mean() <= 0.001 and diff.max() <= 1e-3
+
+
+def test_lm_train_step_is_deterministic_on_the_card(cuda):
+    """bf16 params, many repeated token ids (the embedding gather's
+    backward), int8 states and compression: two runs of two steps from
+    one state end in the same bits."""
+    cfg, pcfg, _ = _lm_setup(dtype="bfloat16")
+    pcfg = pcfg.with_(opt_state_dtype="int8", grad_compression=True)
+    step = training.make_train_step(cfg, pcfg, ShapeConfig(
+        "tiny", "train", 16, 4), base_lr=1e-2, warmup=2, total_steps=20)
+    state = training.init_train_state(
+        cfg, pcfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    batches = [_lm_batch(cfg.vocab_size, 2, seed=i, high=5) for i in (0, 1)]
+    runs = []
+    for _ in range(2):
+        s = state
+        for b in batches:
+            s, m = step(s, b)
+        runs.append((s, m))
+    (a, ma), (b, mb) = runs
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    for x, y in zip(
+            tree_leaves([a.params, a.err_buf, a.opt.count, a.step]),
+            tree_leaves([b.params, b.err_buf, b.opt.count, b.step])):
+        assert torch.equal(x, y)
+    for x, y in zip(tree_leaves([a.opt.mu, a.opt.nu]),
+                    tree_leaves([b.opt.mu, b.opt.nu])):
+        assert torch.equal(x.values, y.values)
+        assert torch.equal(x.scales, y.scales)
+
+
+@pytest.mark.parametrize("case", [(2, 2, 2, 32, 32, 16, True, 0, 8),
+                                  (1, 2, 2, 8, 40, 16, True, 32, 16),
+                                  (2, 3, 2, 11, 29, 16, False, 0, 8),
+                                  (1, 8, 4, 300, 300, 128, True, 0, 128)])
+def test_attention_backward_on_the_card_matches_the_cpu(cuda, case):
+    """The custom backward's dq, dk, dv on the card within 1e-5 of its CPU
+    run (float32, TF32 off on both; sums in other orders)."""
+    B, R, G, Sq, Sk, hd, causal, off, bk = case
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, R, G, Sq, hd), (B, R, Sk, hd),
+                               (B, R, Sk, hd), (B, R, G, Sq, hd)))
+    outs = []
+    for dev in ("cpu", cuda):
+        qq, kk, vv = (t.to(dev).requires_grad_(True) for t in (q, k, v))
+        out = tattn.gqa_blocked_attention(qq, kk, vv, causal=causal,
+                                          q_offset=off, block_k=bk)
+        outs.append([out] + list(torch.autograd.grad(
+            out, (qq, kk, vv), dout.to(dev))))
+    for c, g in zip(*outs):
+        np.testing.assert_allclose(g.detach().cpu().numpy(),
+                                   c.detach().numpy(), rtol=1e-5, atol=1e-5)
+
