@@ -138,7 +138,35 @@
    gradient compression, each loss within 0.25 of the float32 run's at
    the same step. No port kernel may launch in phase I: the reference
    trains through its blocked attention, never its Pallas kernel.
-10. Phase C: each kernel against its plain version on the card at the
+10. Phase J: the MoE, SSM and hybrid LM families serving at phase D's
+   shape (batch 4, 2048 prompt tokens, 16 generated, the bundle's cache
+   dtype: int8 where the model has attention), bf16 weights from a seeded
+   CUDA generator, one model at a time, each freed before the next: J.1
+   phi3.5-moe at full size (32 layers, 16 experts top-2, 28.45 B
+   params), J.2 llama4-maverick at full width with its depth cut to 2 of
+   48 layers (one dense + MoE pair, 128 experts top-1 and the shared
+   expert; 48 layers hold 397.7 B params), J.3 mamba2-1.3b and J.4
+   zamba2-1.2b at full size (38 layers: 6 groups of 6 and a remainder of
+   2, so 7 shared-attention invocations). For each: `generate` as it
+   stands (blocked prefill, no kernel); blocked prefill timed 3 times;
+   for J.1, J.2 and J.4 a flash prefill whose kernel must launch once per
+   attention invocation (32, 2, 7), whose first invocation's int8 cache
+   must equal the blocked one's and whose last-token logits must agree
+   with the blocked ones within 5% of each row's spread over the real
+   vocabulary (the padded tail is -1e30), timed 3 times; for the MoE
+   families the experts every token kept at every layer in a blocked and
+   a flash prefill, the (token, layer) pairs that differ counted, and a
+   row whose last token was rerouted (other experts, or dropped or kept
+   at capacity) reported and not held to the 5% (at least one row must
+   be held);
+   for J.3 and J.4 prefill(2048) + decode(1) against the train-mode
+   forward of 2049 tokens within 5% of the spread (the reference's own
+   check; the MoE families drop tokens at decode's capacity of 1 and are
+   not held to it); 15 teacher-forced decode steps from the flash cache
+   (finite logits; the generated token within 5% of the spread of the
+   max, but for the MoE families); one decode step under `torch.profiler`
+   (idle share); peak memory. No port kernel but flash may launch in J.
+11. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -151,7 +179,9 @@
    flash also in float32 with a ragged kv length and `q_offset`. Integer
    outputs, the pool (counters included) and the int8 matmul must be
    equal, flash within 2e-2 (bf16) and 2e-5 (f32); the flash kernel is
-   also timed in float32 at phase D's shape (its CUDA-core path). Kernel
+   also timed in float32 at phase D's shape (its CUDA-core path) and in
+   bf16 at phase J's new shapes (J.2: 160 heads-by-batch, d 128; J.4:
+   128, d 64), each beside its bound and the library call. Kernel
    times are CUDA-event means over back-to-back launches queued behind a
    spin (warm L2, as in the serve loop); the wall time per call, host
    included, goes to the record as `call_ms`. `library_ms` times one
@@ -166,8 +196,8 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, H, D, I, C in that order. Prints one line per phase
-(phase E's, F's and I's with the card's name and power limit), one line
+Runs A, B, E, F, G, H, D, I, J, C in that order. Prints one line per phase
+(phase E's, F's, I's and J's with the card's name and power limit), one line
 per kernel, the card's name and power limit as `nvidia-smi` gives them,
 a `kernels` JSON line, and last `{"ok": true, "device": {...}}`;
 `--record PATH` also writes the full record as JSON. Any failure exits
@@ -236,9 +266,14 @@ LM_GEN = 16
 SPREAD_FRAC = 0.05  # tests/test_serving.py's gap criterion
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # (name, bh, sq, sk, d, dtype, q_offset): phase D's attention (32 heads x
-# batch 4), then float32 with a ragged kv length and the causal offset
+# batch 4), then float32 with a ragged kv length and the causal offset;
+# then phase J's new shapes, J.2 (40 heads x batch 4) and J.4 (head dim
+# 64), each timed beside its bound and the library call
 FLASH_CASES = (("phase D", 128, 2048, 2048, 128, torch.bfloat16, 0),
-               ("f32 ragged", 8, 300, 1000, 128, torch.float32, 700))
+               ("f32 ragged", 8, 300, 1000, 128, torch.float32, 700),
+               ("phase J.2", 160, 2048, 2048, 128, torch.bfloat16, 0),
+               ("phase J.4", 128, 2048, 2048, 64, torch.bfloat16, 0))
+FLASH_TIMED_EXTRA = ("phase J.2", "phase J.4")
 # phase E: the serving front-ends. 2,085 queries are 8 full buckets and a
 # 37-query tail (the 64 bucket); the load replay runs at half the
 # pipelined rate of E.1
@@ -288,6 +323,14 @@ I_PROFILE_GROUPS = {"bf16 GEMM": ("nvjet",),
                     "reductions": ("reduce",),
                     "copies and casts": ("copy",),
                     "elementwise": ("elementwise",)}
+# phase J: the MoE, SSM and hybrid families at phase D's serving shape,
+# (tag, arch, layers or None for all): llama4-maverick's 48 layers hold
+# 397.7 B params, so one dense + MoE pair of them (18.6 B, 37.1 GB) runs
+J_MODELS = (("J.1", "phi3.5-moe-42b-a6.6b", None),
+            ("J.2", "llama4-maverick-400b-a17b", 2),
+            ("J.3", "mamba2-1.3b", None),
+            ("J.4", "zamba2-1.2b", None))
+J_PREFILL_REPS = 3  # each prefill time is the median of this many
 WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2055,7 +2098,10 @@ def lm_phase(seed: int, device, ops) -> tuple[dict, dict]:
     kw = dict(cache_len=cache_len, cache_dtype=cache_dtype)
     pre_b, rec["prefill_blocked_ms"] = synced_ms(
         lambda: lm.prefill(params, cfg, batch, attn_impl="blocked", **kw))
-    lb = pre_b.logits[:, -1].float()
+    # every comparison reads the real vocabulary: the padded tail holds
+    # -1e30 (`unembed`), which would make each row's spread ~1e30
+    V = cfg.vocab_size
+    lb = pre_b.logits[:, -1, :V].float()
     check(bool(torch.isfinite(lb).all()), "blocked prefill logits")
     lm.prefill(params, cfg, batch, attn_impl="flash", **kw)  # warm-up
     ops.reset_launches()
@@ -2363,11 +2409,342 @@ def lm_train_phase(seed: int, device, ops) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase J: the MoE, SSM and hybrid LM families serving on the card
+# ---------------------------------------------------------------------------
+def attention_invocations(cfg) -> int:
+    """Attention blocks one forward runs: every layer of the dense and MoE
+    stacks, the hybrid's shared block once a group and once before its
+    remainder, none in an SSM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        groups, rem = divmod(cfg.n_layers, cfg.attn_every)
+        return groups + (1 if rem else 0)
+    return cfg.n_layers
+
+
+def first_kv_cache(caches):
+    """The KV cache of the first attention invocation (layer 0): a stacked
+    view's index 0, llama4's dense stack's, the hybrid's first group's."""
+    if isinstance(caches, dict):
+        caches = caches["dense"]
+    elif not hasattr(caches, "_fields"):  # the hybrid's tuple
+        caches = caches[0]
+    return type(caches)(*(None if t is None else t[0] for t in caches))
+
+
+def logit_diff_frac(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over rows of max |got - want| / (max - min of `want`)."""
+    got, want = got.float(), want.float()
+    spread = want.max(-1).values - want.min(-1).values
+    return float(((got - want).abs().max(-1).values / spread).max())
+
+
+def routing_flips(params, cfg, batch, kw, lm, moe_mod) -> dict:
+    """The experts each token kept at every MoE layer, in a blocked and a
+    flash prefill of `batch`: the (token, layer) pairs whose kept experts
+    differ, and for each batch row whether its last token's differ at any
+    layer (capacity is claimed in token order, so the last token of a
+    group is the first to be dropped, and a rerouted token moves its
+    logits by far more than flash's rounding does)."""
+    route = moe_mod.route
+    kept = {}
+
+    for impl in ("blocked", "flash"):
+        seen = kept[impl] = []
+
+        def spy(*args):
+            r = route(*args)
+            seen.append(r.dispatch.amax(-1) > 0)  # (G, S, E)
+            return r
+
+        moe_mod.route = spy
+        try:
+            lm.prefill(params, cfg, batch, attn_impl=impl, **kw)
+        finally:
+            moe_mod.route = route
+    B, S = batch["tokens"].shape
+    flipped = [(a != b).any(-1).reshape(B, S)
+               for a, b in zip(kept["blocked"], kept["flash"])]
+    return {"flipped_tokens": int(sum(int(f.sum()) for f in flipped)),
+            "routed_tokens": B * S * len(flipped),
+            "last_token_rerouted": [bool(any(bool(f[r, -1]) for f in flipped))
+                                    for r in range(B)]}
+
+
+def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
+    """One model of phase J, freed on return (see `lm_family_phase`)."""
+    from repro_torch.configs.base import param_count_dense
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import engine as lm
+    from repro_torch.utils import tree_leaves
+
+    t_run = time.perf_counter()
+    bundle = get_arch(arch)
+    cfg = bundle.model if layers is None else bundle.model.with_(
+        n_layers=layers)
+    cache_dtype = bundle.parallel.kv_cache_dtype
+    n_attn = attention_invocations(cfg)
+    check((cache_dtype == "int8") == (n_attn > 0),
+          f"{arch} cache dtype {cache_dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, init_ms = synced_ms(lambda: tf.init_params(cfg, gen, device))
+    leaves = tree_leaves(params)
+    rec = {"tag": tag, "arch": arch, "family": cfg.family,
+           "layers": cfg.n_layers, "of_layers": bundle.model.n_layers,
+           "d_model": cfg.d_model, "cache_dtype": cache_dtype,
+           "init_ms": init_ms, "attention_invocations": n_attn,
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves),
+           "n_params": sum(t.numel() for t in leaves),
+           "param_count_dense": param_count_dense(cfg)}
+    del leaves
+    if cfg.family == "moe":
+        rec["capacity_prefill"] = moe_mod.capacity(cfg, LM_BATCH * LM_PROMPT)
+        rec["capacity_decode"] = moe_mod.capacity(cfg, LM_BATCH)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+    batch = {"tokens": prompt}
+    cache_len = LM_PROMPT + LM_GEN + 4  # as launch/serve.py
+    kw = dict(cache_len=cache_len, cache_dtype=cache_dtype)
+    every = dict.fromkeys(ops.launch_counts(), 0)  # the whole run's
+
+    def tally() -> dict:
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            every[k] += v
+        ops.reset_launches()
+        return counts
+
+    # the entry point as it stands (blocked prefill, no kernel)
+    engine = lm.LMServingEngine(params, cfg, batch=LM_BATCH, **kw)
+    ops.reset_launches()
+    res, rec["generate_ms"] = synced_ms(
+        lambda: engine.generate(batch, LM_GEN))
+    counts = tally()
+    check(set(counts.values()) == {0},
+          f"{tag} blocked generate launched a kernel: {counts}")
+    toks = res.tokens
+    check(toks.shape == (LM_BATCH, LM_GEN), f"{tag} tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{tag} generated token out of range")
+    rec["generate_tokens_per_s"] = LM_BATCH * LM_GEN / rec["generate_ms"] \
+        * 1e3
+
+    # blocked prefill, then flash where the model has attention
+    runs = [synced_ms(lambda: lm.prefill(params, cfg, batch, **kw))
+            for _ in range(J_PREFILL_REPS)]
+    rec["prefill_blocked_ms"] = statistics.median(ms for _, ms in runs)
+    rec["prefill_blocked_ms_runs"] = [ms for _, ms in runs]
+    pre_b = runs[0][0]
+    del runs
+    # every comparison reads the real vocabulary: the padded tail holds
+    # -1e30 (`unembed`), which would make each row's spread ~1e30
+    V = cfg.vocab_size
+    lb = pre_b.logits[:, -1, :V].float()
+    check(bool(torch.isfinite(lb).all()), f"{tag} blocked prefill logits")
+    caches = pre_b.caches
+    # the checked flash prefill's launches (the kernel table's count)
+    rec["launches"] = dict.fromkeys(every, 0)
+    if n_attn:
+        lm.prefill(params, cfg, batch, attn_impl="flash", **kw)  # warm-up
+        tally()
+        pre_f, first_ms = synced_ms(lambda: lm.prefill(
+            params, cfg, batch, attn_impl="flash", **kw))
+        counts = tally()
+        rec["launches"] = counts
+        rec["flash_launches"] = counts["flash_attention"]
+        check(counts["flash_attention"] == n_attn,
+              f"{tag} flash prefill launches {counts}, want {n_attn}")
+        check(sum(counts.values()) == n_attn,
+              f"{tag} flash prefill launched other kernels: {counts}")
+        flash_ms = [first_ms] + [synced_ms(lambda: lm.prefill(
+            params, cfg, batch, attn_impl="flash", **kw))[1]
+            for _ in range(J_PREFILL_REPS - 1)]
+        rec["prefill_flash_ms"] = statistics.median(flash_ms)
+        rec["prefill_flash_ms_runs"] = flash_ms
+        fb, ff = first_kv_cache(pre_b.caches), first_kv_cache(pre_f.caches)
+        for f in fb._fields:
+            check(torch.equal(getattr(ff, f), getattr(fb, f)),
+                  f"{tag} layer 0 cache {f} differs between flash and "
+                  f"blocked")
+        lf = pre_f.logits[:, -1, :V].float()
+        check(bool(torch.isfinite(lf).all()), f"{tag} flash prefill logits")
+        rec["prefill_logit_diff_frac"] = logit_diff_frac(lf, lb)
+        rows = [logit_diff_frac(lf[r:r + 1], lb[r:r + 1])
+                for r in range(LM_BATCH)]
+        rec["prefill_row_diff_fracs"] = rows
+        held = list(range(LM_BATCH))
+        if cfg.family == "moe":
+            # a row whose last token kept other experts (or was dropped, or
+            # kept) in one prefill than in the other took another
+            # computation, not flash's rounding of the same one: it is
+            # reported, and the rows that kept their routing are held
+            rec.update(routing_flips(params, cfg, batch, kw, lm, moe_mod))
+            held = [r for r in held if not rec["last_token_rerouted"][r]]
+            check(bool(held), f"{tag}: every row's last token rerouted; "
+                  f"no row to hold flash's logits to")
+            print(f"{tag} routing, flash against blocked prefill: "
+                  f"{rec['flipped_tokens']} of {rec['routed_tokens']} "
+                  f"(token, layer) pairs kept other experts; last tokens "
+                  f"rerouted {rec['last_token_rerouted']}; per-row logit "
+                  f"diff {[round(x, 4) for x in rows]} of the spread",
+                  flush=True)
+        rec["held_rows"] = held
+        for r in held:
+            check(rows[r] <= SPREAD_FRAC,
+                  f"{tag} flash vs blocked logits, row {r}: {rows[r]:.4f} "
+                  f"of the spread")
+        rec["prefill_gap_frac"] = gap_frac(lb, lf.argmax(-1))
+        rec["prefill_argmax_equal"] = bool(
+            (lf.argmax(-1) == lb.argmax(-1)).all())
+        # how far flash's rounding reached: the share of the final hidden
+        # states (bf16, every position) that differ from blocked's bits
+        rec["hidden_diff_share"] = float(
+            (pre_f.hidden != pre_b.hidden).float().mean())
+        rec["hidden_last_diff_share"] = float(
+            (pre_f.hidden[:, -1] != pre_b.hidden[:, -1]).float().mean())
+        caches = pre_f.caches
+        del pre_f
+
+    # J.3, J.4: prefill(S) + decode(1) against the train-mode forward of
+    # S + 1 tokens (no capacity drops in these families)
+    tok = torch.from_numpy(toks).to(device)
+    if cfg.family in ("ssm", "hybrid"):
+        dec = lm.decode_step(params, cfg, {"tokens": tok[:, :1]},
+                             pre_b.caches, LM_PROMPT)
+        full = tf.forward(params, cfg, {"tokens": torch.cat(
+            [prompt, tok[:, :1].to(prompt.dtype)], 1)}, mode="train",
+            logits_mode="last")
+        rec["decode_vs_forward_frac"] = logit_diff_frac(
+            dec.logits[:, -1, :V], full.logits[:, -1, :V])
+        check(rec["decode_vs_forward_frac"] <= SPREAD_FRAC,
+              f"{tag} prefill + decode vs the full forward "
+              f"{rec['decode_vs_forward_frac']:.4f} of the spread")
+        del dec, full
+    del pre_b
+
+    # 15 teacher-forced decode steps from the flash prefill's cache
+    step_ms, gaps = [], []
+    for t in range(LM_GEN - 1):
+        out, ms = synced_ms(lambda: lm.decode_step(
+            params, cfg, {"tokens": tok[:, t:t + 1]}, caches, LM_PROMPT + t))
+        caches = out.caches
+        logits = out.logits[:, -1, :V]
+        check(bool(torch.isfinite(logits).all()), f"{tag} decode {t} logits")
+        gaps.append(gap_frac(logits, tok[:, t + 1]))
+        step_ms.append(ms)
+    rec.update(decode_ms_per_step=statistics.median(step_ms),
+               decode_ms_steps=step_ms, decode_gap_frac_max=max(gaps),
+               decode_tokens_per_s=LM_BATCH / statistics.median(step_ms)
+               * 1e3)
+    if cfg.family != "moe":  # MoE decode drops tokens at capacity 1
+        check(max(gaps) <= SPREAD_FRAC, f"{tag} decode: a generated token "
+              f"is {max(gaps):.4f} of the spread below the max")
+    step = LM_PROMPT + LM_GEN - 1  # a cache row not written yet
+    rec["profile_decode"] = device_profile(lambda: lm.decode_step(
+        params, cfg, {"tokens": tok[:, -1:]}, caches, step))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    tally()
+    rec["all_launches"] = every
+    rec["seconds"] = time.perf_counter() - t_run
+    return rec
+
+
+def lm_family_phase(seed: int, device, ops, card: str) -> dict:
+    """Phase J: `J_MODELS` one at a time, each freed (and the allocator
+    emptied) before the next; nothing of an earlier phase may hold the
+    card's memory. Returns the records and the launches of the checked
+    flash prefills; every launch of the phase must be a flash one."""
+    t_phase = time.perf_counter()
+    gc.collect()  # nothing of the earlier phases' models may linger
+    torch.cuda.empty_cache()
+    rec = {"bytes_before": torch.cuda.memory_allocated(), "models": []}
+    launches, every = {}, {}
+    for tag, arch, layers in J_MODELS:
+        m = family_run(tag, arch, layers, seed, device, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = add_counts(launches, m["launches"])
+        every = add_counts(every, m["all_launches"])
+        rec["models"].append(m)
+        prof = m["profile_decode"]
+        flash = (f"flash {m['prefill_flash_ms']:.1f} ms (median of "
+                 f"{J_PREFILL_REPS}; {m['flash_launches']} launches), "
+                 f"flash-vs-blocked logits {m['prefill_logit_diff_frac']:.4f}"
+                 f" of the spread (rows "
+                 f"{[round(x, 4) for x in m['prefill_row_diff_fracs']]}, "
+                 f"held {m['held_rows']}; final hidden bits differing: "
+                 f"{m['hidden_diff_share']:.4f} of all, "
+                 f"{m['hidden_last_diff_share']:.4f} of the last token's), "
+                 if m["attention_invocations"] else "")
+        full = (f"decode vs full forward {m['decode_vs_forward_frac']:.4f} "
+                f"of the spread, " if "decode_vs_forward_frac" in m else "")
+        caps = (f"capacity prefill {m['capacity_prefill']} decode "
+                f"{m['capacity_decode']} (group, slots), "
+                if "capacity_prefill" in m else "")
+        print(f"phase {tag} ({arch}, {m['layers']} of {m['of_layers']} "
+              f"layers, bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+              f"{m['cache_dtype']} cache; {card}): {m['n_params']} params "
+              f"({m['weight_bytes']} B), {caps}prefill blocked "
+              f"{m['prefill_blocked_ms']:.1f} ms, {flash}{full}decode "
+              f"{m['decode_ms_per_step']:.2f} ms/step "
+              f"({m['decode_tokens_per_s']:.1f} tok/s), generate "
+              f"{m['generate_ms']:.1f} ms ({m['generate_tokens_per_s']:.1f} "
+              f"tok/s), decode gap max {m['decode_gap_frac_max']:.4f}, peak "
+              f"memory {m['max_memory_allocated']} B; a decode step: "
+              f"{prof['kernels']} kernels, {prof['device_ms']:.2f} ms on the "
+              f"card in {prof['wall_ms']:.2f} ms (idle share "
+              f"{prof['idle_share']}); {m['seconds']:.1f} s", flush=True)
+    check(sum(every.values()) == every["flash_attention"],
+          f"a port kernel other than flash launched in phase J: {every}")
+    rec["launches"] = launches
+    rec["all_launches"] = every
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase J took {rec['seconds']:.1f} s; launches {launches}; "
+          f"{rec['bytes_before']} B held by earlier phases", flush=True)
+    return rec
+
+
+def flash_times(q, k, v, kw, got, want, ops, ref) -> dict:
+    """The flash kernel's device and wall ms at one shape, beside its
+    bound (4 d flops a causal (row, key) pair at the bf16 tensor-core
+    peak, or its bytes), the plain version's ms and
+    `scaled_dot_product_attention`'s."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(sq, device=q.device) + kw["q_offset"]
+    pairs = int((rows + 1).clamp(0, sk).sum())  # causal (row, key)
+    flops = 4 * d * bh * pairs
+    bnd, by = bound(4 * bh * sq * d * q.element_size(), flops, BF16_TC_FLOPS)
+    q4, k4, v4 = (t.view(4, bh // 4, -1, d) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    out = {
+        "ms": timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
+        "call_ms": call_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
+        "plain_ms": timed_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                             2),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10),
+        "library_max_abs_err": float(
+            (lib.reshape(got.shape).float() - want.float()).abs().max()),
+        "shape": f"bh={bh} sq={sq} sk={sk} d={d} {q.dtype} causal"}
+    out["rate"] = f"{flops / out['ms'] / 1e9:.1f} TFLOP/s"
+    return out
+
+
 def flash_entries(gen, device, ops, ref, launches: int):
     """Phase C for the flash kernel: phase D's shape (bf16, timed, and
-    timed again in float32 on the CUDA-core path) and a float32 case with
-    a ragged kv length and q_offset."""
-    errs, entry = {}, None
+    timed again in float32 on the CUDA-core path), a float32 case with a
+    ragged kv length and q_offset, and phase J's new shapes (timed, under
+    `extra`)."""
+    errs, entry, extra = {}, None, {}
     for name, bh, sq, sk, d, dt, off in FLASH_CASES:
         q, k, v = (torch.randn((bh, s, d), generator=gen, device=device)
                    .to(dt) for s in (sq, sk, sk))
@@ -2379,35 +2756,22 @@ def flash_entries(gen, device, ops, ref, launches: int):
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
               f"flash kernel ({name}) != plain: max abs err {err}")
         errs[name] = err
+        if name in FLASH_TIMED_EXTRA:
+            extra[name] = {"max_abs_err": err,
+                           **flash_times(q, k, v, kw, got, want, ops, ref)}
         if entry is not None:
             continue
-        rows = torch.arange(sq, device=device) + off
-        pairs = int((rows + 1).clamp(0, sk).sum())  # causal (row, key)
-        flops = 4 * d * bh * pairs
-        bnd, by = bound(4 * bh * sq * d * q.element_size(), flops,
-                        BF16_TC_FLOPS)
-        q4, k4, v4 = (t.view(4, bh // 4, -1, d) for t in (q, k, v))
-        lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
         entry = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:140",
             "launches": launches, "max_abs_err": err,
-            "ms": timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
-            "call_ms": call_ms(lambda: ops._flash_cuda(q, k, v, **kw), 20),
-            "plain_ms": timed_ms(
-                lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True), 10),
-            "library_max_abs_err": float(
-                (lib.reshape(got.shape).float() - want.float()).abs().max()),
-            "shape": f"bh={bh} sq={sq} sk={sk} d={d} {dt} causal"}
-        entry["rate"] = f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s"
+            **flash_times(q, k, v, kw, got, want, ops, ref)}
         # the float32 path (CUDA cores) at the same shape
         q, k, v = (t.float() for t in (q, k, v))
         entry["f32_ms"] = timed_ms(lambda: ops._flash_cuda(q, k, v, **kw), 3)
     entry["case_errs"] = errs
+    entry["extra"] = extra
     return entry
 
 
@@ -2909,6 +3273,9 @@ def main(argv=None) -> int:
           f"launches {lm_train['launches']}; phase I took "
           f"{lm_train['seconds']:.1f} s", flush=True)
 
+    # -- phase J: the MoE, SSM and hybrid families serving ----------------
+    fam = lm_family_phase(args.seed, device, ops, card)
+
     for name, prof in (("A", a["profile"]), ("B", b["profile"])):
         print(f"phase {name} profile, one serve step: {prof['kernels']} "
               f"kernels ({prof['launches']} of the port's), "
@@ -3033,7 +3400,8 @@ def main(argv=None) -> int:
 
     gen_c = torch.Generator(device=device).manual_seed(args.seed + 2)
     kernels.append(flash_entries(gen_c, device, ops, ref,
-                                 lm_rec["launches"]["flash_attention"]))
+                                 lm_rec["launches"]["flash_attention"]
+                                 + fam["launches"]["flash_attention"]))
     kernels.append(int8_entry(int8_operands, ops, ref,
                               lm_rec["int8_launches"]))
 
@@ -3055,7 +3423,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_i=lm_train,
-                  phase_e=e,
+                  phase_j=fam, phase_e=e,
                   phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",

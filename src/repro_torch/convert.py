@@ -9,13 +9,17 @@ they are viewed as int32 holding the same bits. bfloat16 leaves (numpy's
 reference `TrainState` (parameters, AdamW moments with int8 `QuantState`
 leaves, count and step) carries across the same way
 (`train_state_from_numpy`), so a port trainer continues from the
-reference's optimizer state.
+reference's optimizer state. A reference LM cache tree (KV caches with
+int8 or bfloat16 values, recurrent states, None leaves) carries across
+with `caches_from_numpy`, so a port decode continues the reference's
+prefill.
 """
 from __future__ import annotations
 
 from repro_torch.core.nns import BlockSummary
 from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.distributed.training import TrainState
+from repro_torch.models.attention import KVCacheView
 from repro_torch.models.recsys import YoutubeDNNConfig
 from repro_torch.optim.adamw import AdamWState, QuantState
 from repro_torch.serving.hot_cache import HotRowCache
@@ -58,9 +62,34 @@ def train_state_from_numpy(state, device=None) -> TrainState:
 
 
 # an LM tree of `repro`'s `models/transformer.py` `init_params` (stacked
-# layer dicts, bf16 or f32 leaves) carries across the same way, ready for
+# layer dicts, nested for llama4's pairs and the hybrid's groups; bf16 or
+# f32 leaves) carries across the same way, ready for
 # `repro_torch.models.transformer.forward`
 lm_params_from_numpy = params_from_numpy
+
+
+def caches_from_numpy(tree, device=None):
+    """A reference cache tree (`repro/serving/kv_cache.py`, or a prefill's
+    `caches`; leaves numpy or anything `np.array` takes) as the port's on
+    `device` (default `cuda`): its `KVCacheView`s (any named tuple with
+    fields k, v, k_scale, v_scale) become the port's, other tuples stay
+    tuples, dicts dicts, None None; bfloat16 and int8 leaves keep their
+    bits."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple) and getattr(t, "_fields", None) == \
+                KVCacheView._fields:
+            return KVCacheView(*(conv(v) for v in t))
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v) for v in t)
+        return to_device(t, device)
+
+    return conv(tree)
 
 
 def engine_from_arrays(*, cfg, params, tables_q: dict, item_table_q,

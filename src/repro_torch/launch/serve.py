@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         [--reduced] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
-The port of `repro/launch/serve.py`: random weights from seed 0, prompt
+The port of `repro/launch/serve.py` for any arch of `configs/registry.py`
+(dense, MoE, SSM, hybrid): random weights from seed 0, prompt
 tokens from numpy's seeded generator, an int8 or bfloat16 KV cache as the
 arch's bundle says (bfloat16 for `--reduced`). Runs on `cuda` unless
 `--device cpu` is given.

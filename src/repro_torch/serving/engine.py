@@ -1,8 +1,10 @@
 """LM prefill / decode steps and a batched greedy generation engine.
 
-The port of `repro/serving/engine.py` for the dense family. There is no
-`jax.jit`: each step runs eagerly on the params' device. Decode updates
-the KV cache in place (see `models/attention.py`).
+The port of `repro/serving/engine.py` for the dense, MoE, SSM and hybrid
+families. There is no `jax.jit`: each step runs eagerly on the params'
+device. Decode updates the KV caches in place (see `models/attention.py`)
+and returns new recurrent states (`serving/kv_cache.py`); the SSM and
+hybrid families' states come out of the prefill's own scan.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from repro_torch.models import transformer as tf
 def prefill(params, cfg: ModelConfig, batch: dict, *, cache_len: int,
             cache_dtype: str = "bfloat16", remat: str = "none",
             attn_impl: str = "blocked") -> tf.ModelOutput:
-    """Process a prompt batch; returns last-token logits + a filled cache."""
+    """Process a prompt batch; returns last-token logits + the filled
+    cache tree (KV caches and recurrent states)."""
     return tf.forward(params, cfg, batch, mode="prefill",
                       cache_len=cache_len, cache_dtype=cache_dtype,
                       remat=remat, attn_impl=attn_impl, logits_mode="last")
@@ -28,8 +31,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, cache_len: int,
 def decode_step(params, cfg: ModelConfig, batch: dict, caches: Any,
                 cache_index, *, attn_impl: str = "blocked"
                 ) -> tf.ModelOutput:
-    """One token per sequence against an existing cache (written in
-    place at `cache_index`)."""
+    """One token per sequence against an existing cache tree: KV caches
+    written in place at `cache_index`, new recurrent states returned."""
     return tf.forward(params, cfg, batch, mode="decode", caches=caches,
                       cache_index=cache_index, attn_impl=attn_impl,
                       logits_mode="all")

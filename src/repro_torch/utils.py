@@ -138,6 +138,9 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        items = (tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree))
+        if hasattr(tree, "_fields"):  # a named tuple (a KVCacheView)
+            return type(tree)(*items)
+        return type(tree)(items)
     return None if tree is None else fn(tree, *rest)

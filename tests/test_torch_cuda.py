@@ -1236,3 +1236,106 @@ def test_attention_backward_on_the_card_matches_the_cpu(cuda, case):
         np.testing.assert_allclose(g.detach().cpu().numpy(),
                                    c.detach().numpy(), rtol=1e-5, atol=1e-5)
 
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid LM families
+# ---------------------------------------------------------------------------
+NEW_FAMILIES = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
+                "mamba2-1.3b", "zamba2-1.2b")
+
+
+def _family_setup(arch):
+    from repro_torch.models import transformer as ttf
+
+    cfg = reduce_config(get_arch(arch).model)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, params, tree_map(lambda t: t.cuda(), params)
+
+
+def _family_tol(cfg):
+    """MoE experts run in bfloat16 on both devices (the reference's
+    dtypes), so their sums in cuBLAS's order round a bfloat16 step apart:
+    1e-2 of the largest logit. The rest is float32 with TF32 off: 1e-4."""
+    return 1e-2 if cfg.family == "moe" else 1e-4
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced configs: train-mode logits and aux loss, prefill logits and
+    a decode step from the CPU's cache tree carried to the card, within
+    `_family_tol` of the largest logit; no port kernel launches on the
+    blocked path."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import engine as teng
+
+    cfg, cpu_p, gpu_p = _family_setup(arch)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 17)).astype(np.int32)
+    tol = _family_tol(cfg)
+
+    def close(g, c):
+        c = c.float()
+        assert (g.float().cpu() - c).abs().max() <= tol * c.abs().max()
+
+    ops.reset_launches()
+    outs = [ttf.forward(p, cfg, {"tokens": toks}, mode="train",
+                        logits_mode="all") for p in (cpu_p, gpu_p)]
+    close(outs[1].logits, outs[0].logits)
+    np.testing.assert_allclose(float(outs[1].aux_loss),
+                               float(outs[0].aux_loss), rtol=tol)
+    pre = [teng.prefill(p, cfg, {"tokens": toks[:, :16]}, cache_len=20,
+                        cache_dtype="bfloat16") for p in (cpu_p, gpu_p)]
+    close(pre[1].logits, pre[0].logits)
+    carried = tree_map(lambda t: t.cuda(), pre[0].caches)
+    dec = [teng.decode_step(p, cfg, {"tokens": toks[:, 16:]}, c, 16)
+           for p, c in ((cpu_p, pre[0].caches), (gpu_p, carried))]
+    close(dec[1].logits, dec[0].logits)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("arch,n_attn", [("phi3.5-moe-42b-a6.6b", 4),
+                                         ("llama4-maverick-400b-a17b", 4),
+                                         ("zamba2-1.2b", 3)])
+def test_new_families_flash_prefill_on_the_card(cuda, arch, n_attn):
+    """bf16 weights: the flash prefill launches the kernel once per
+    attention invocation (every layer; the hybrid's 2 groups and its
+    remainder) and its last-token logits agree with the blocked
+    prefill's within 5% of each row's spread."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import engine as teng
+
+    cfg = reduce_config(get_arch(arch).model).with_(dtype="bfloat16")
+    params = ttf.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda)
+    kw = dict(cache_len=72, cache_dtype="int8")
+    blocked = teng.prefill(params, cfg, {"tokens": toks}, **kw)
+    ops.reset_launches()
+    flash = teng.prefill(params, cfg, {"tokens": toks}, attn_impl="flash",
+                         **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == n_attn
+    assert sum(counts.values()) == n_attn
+    lb, lf = blocked.logits[:, -1].float(), flash.logits[:, -1].float()
+    spread = lb.max(-1).values - lb.min(-1).values
+    assert bool(((lf - lb).abs().max(-1).values <= 0.05 * spread).all())
+
+
+@pytest.mark.parametrize("bh,d", [(160, 128), (128, 64)])
+def test_flash_attention_at_the_new_families_shapes(cuda, bh, d):
+    """The prefill shapes of llama4-maverick (40 heads x batch 4, d 128)
+    and zamba2 (32 heads x batch 4, d 64) at 2,048 tokens, bf16 causal,
+    against the plain version (2e-2, as every bf16 case)."""
+    gen = torch.Generator(device=cuda).manual_seed(bh + d)
+    q, k, v = (torch.randn((bh, 2048, d), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    before = build.FLASH_ATTENTION.launches
+    got = ops.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)

@@ -15,7 +15,13 @@ Tolerances, stated once:
     materialized softmax in float64; the forward is bit-equal to the
     parent's (a copy of it is kept here);
   * losses within rtol 1e-5; gradients within 1e-5 of each leaf's
-    largest magnitude (`tests/test_torch_training.py`);
+    largest magnitude (`tests/test_torch_training.py`); for the MoE
+    families (reduced phi3.5-moe and llama4-maverick, also at 2 layers)
+    within 1e-2 of it (`MOE_GRAD_TOL`): their experts run in bfloat16
+    even in a float32 model, as in the reference, so an expert product
+    summed in another order can round one bfloat16 step (2**-8 relative)
+    apart, and that step reaches every gradient upstream of the layer
+    (4.7e-3 measured); their losses stay within rtol 1e-5;
   * the train step, 5 steps each run from the reference's state after
     the step before (carried across): loss, grad norm and lr within rtol
     1e-5 (the grad norm 5e-5 with compression: it is the compressed
@@ -83,6 +89,7 @@ from repro_torch.utils import tree_leaves, tree_map
 ATTN_TOL = 1e-5
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-5
+MOE_GRAD_TOL = 1e-2
 PARAM_ATOL = 1e-6
 SRC = Path(__file__).resolve().parents[1] / "src"
 JOIN_S = 120.0
@@ -109,15 +116,25 @@ def _configs(arch, **kw):
     return jcfg, tcfg
 
 
+def _attn_trees(tree):
+    """Every attention param dict of an LM tree, in any family's layout."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "attn":
+                yield v
+            else:
+                yield from _attn_trees(v)
+
+
 def _bias(tree, seed):
     """The reference inits qkv biases to zero: make them nonzero."""
     rng = np.random.default_rng(seed)
-    attn = tree["layers"]["attn"]
-    for name in ("wq", "wk", "wv"):
-        if "b" in attn[name]:
-            b = attn[name]["b"]
-            attn[name]["b"] = (0.1 * rng.standard_normal(b.shape)).astype(
-                b.dtype)
+    for attn in _attn_trees(tree):
+        for name in ("wq", "wk", "wv"):
+            if "b" in attn[name]:
+                b = attn[name]["b"]
+                attn[name]["b"] = (0.1 * rng.standard_normal(
+                    b.shape)).astype(b.dtype)
     return tree
 
 
@@ -143,14 +160,14 @@ def _tb(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
-def _assert_grads(tgrads, jgrads):
+def _assert_grads(tgrads, jgrads, tol=GRAD_RTOL):
     got, want = tree_leaves(tgrads), [np.asarray(x) for x in
                                       jax.tree_util.tree_leaves(jgrads)]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
-                                   atol=GRAD_RTOL * np.abs(w).max())
+                                   atol=tol * np.abs(w).max())
 
 
 def _assert_params(tparams, jparams, frac=0.001, most=1e-3):
@@ -353,7 +370,8 @@ def test_lm_loss_and_grads_match_reference(arch, remat):
         lambda p, b: ttr.lm_loss(p, tcfg, pt, b)[0])(
         lm_params_from_numpy(tree, "cpu"), _tb(mb))
     np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
-    _assert_grads(tg, jg)
+    _assert_grads(tg, jg, MOE_GRAD_TOL if tcfg.family == "moe"
+                  else GRAD_RTOL)
 
 
 def test_train_forward_has_grad_and_serving_does_not():
@@ -395,6 +413,10 @@ STEP_CASES = [
     ("qwen2.5-3b", 1, "block", "int8", False),
     ("chatglm3-6b", 2, "block", "float32", False),
     ("chatglm3-6b", 1, "none", "int8", True),
+    # the SSM and hybrid trees (the MoE families' bfloat16 experts are
+    # held at the loss and gradients, `MOE_GRAD_TOL`)
+    ("mamba2-1.3b", 2, "block", "float32", False),
+    ("zamba2-1.2b", 1, "none", "int8", False),
 ]
 
 
