@@ -166,7 +166,26 @@
    (finite logits; the generated token within 5% of the spread of the
    max, but for the MoE families); one decode step under `torch.profiler`
    (idle share); peak memory. No port kernel but flash may launch in J.
-11. Phase C: each kernel against its plain version on the card at the
+11. Phase K: the VLM, audio and largest dense configs serving at phase
+   J's shape and in its way (`family_run`), one at a time: K.1
+   qwen2-vl-72b at full width with its depth cut to 8 of 80 layers
+   (9.51 B params), its prompt carrying 256 seeded float32 patch
+   embeddings at slots 64-319 of every row (a 16 x 16 image grid) and
+   explicit (3, B, S) M-RoPE positions (text slots their index in all
+   three components, grid slot (r, c) (64, 64 + r, 64 + c)); K.2
+   musicgen-large at full size (48 layers, 4 codebooks: a (4, 4, 2048)
+   token grid, `generate` gives (4, 4, 16)); K.3 llama3-405b at full
+   width with its depth cut to 4 of 126 layers (16.95 B params). For
+   each: blocked and flash prefill (flash launches 8, 48 and 4), flash
+   against blocked within 5% of each row's spread over the real
+   vocabulary (K.2: of each (row, codebook)), prefill(2048) + decode(1)
+   against the train-mode forward of 2049 tokens within 5%, 15
+   teacher-forced decode steps, a profiled step, peak memory; K.1 also
+   holds the embedding rows at the vision slots bit-equal to the embeds
+   cast to bf16, M-RoPE of three equal components bit-equal to standard
+   RoPE, and its prompt's angles off standard exactly on the grid. No
+   port kernel but flash may launch in K.
+12. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -180,8 +199,9 @@
    outputs, the pool (counters included) and the int8 matmul must be
    equal, flash within 2e-2 (bf16) and 2e-5 (f32); the flash kernel is
    also timed in float32 at phase D's shape (its CUDA-core path) and in
-   bf16 at phase J's new shapes (J.2: 160 heads-by-batch, d 128; J.4:
-   128, d 64), each beside its bound and the library call. Kernel
+   bf16 at phase J's and K's new shapes (J.2: 160 heads-by-batch, d 128;
+   J.4: 128, d 64; K.1: 256, d 128; K.3: 512, d 128), each beside its
+   bound and the library call. Kernel
    times are CUDA-event means over back-to-back launches queued behind a
    spin (warm L2, as in the serve loop); the wall time per call, host
    included, goes to the record as `call_ms`. `library_ms` times one
@@ -196,8 +216,9 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, H, D, I, J, C in that order. Prints one line per phase
-(phase E's, F's, I's and J's with the card's name and power limit), one line
+Runs A, B, E, F, G, H, D, I, J, K, C in that order. Prints one line per
+phase (phase E's, F's, I's, J's and K's with the card's name and power
+limit), one line
 per kernel, the card's name and power limit as `nvidia-smi` gives them,
 a `kernels` JSON line, and last `{"ok": true, "device": {...}}`;
 `--record PATH` also writes the full record as JSON. Any failure exits
@@ -268,12 +289,16 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # (name, bh, sq, sk, d, dtype, q_offset): phase D's attention (32 heads x
 # batch 4), then float32 with a ragged kv length and the causal offset;
 # then phase J's new shapes, J.2 (40 heads x batch 4) and J.4 (head dim
-# 64), each timed beside its bound and the library call
+# 64), and phase K's, K.1 (64 heads x batch 4) and K.3 (128 heads x batch
+# 4), each timed beside its bound and the library call (K.2's, 32 heads x
+# batch 4 at head dim 64, is J.4's)
 FLASH_CASES = (("phase D", 128, 2048, 2048, 128, torch.bfloat16, 0),
                ("f32 ragged", 8, 300, 1000, 128, torch.float32, 700),
                ("phase J.2", 160, 2048, 2048, 128, torch.bfloat16, 0),
-               ("phase J.4", 128, 2048, 2048, 64, torch.bfloat16, 0))
-FLASH_TIMED_EXTRA = ("phase J.2", "phase J.4")
+               ("phase J.4", 128, 2048, 2048, 64, torch.bfloat16, 0),
+               ("phase K.1", 256, 2048, 2048, 128, torch.bfloat16, 0),
+               ("phase K.3", 512, 2048, 2048, 128, torch.bfloat16, 0))
+FLASH_TIMED_EXTRA = ("phase J.2", "phase J.4", "phase K.1", "phase K.3")
 # phase E: the serving front-ends. 2,085 queries are 8 full buckets and a
 # 37-query tail (the 64 bucket); the load replay runs at half the
 # pipelined rate of E.1
@@ -331,6 +356,15 @@ J_MODELS = (("J.1", "phi3.5-moe-42b-a6.6b", None),
             ("J.3", "mamba2-1.3b", None),
             ("J.4", "zamba2-1.2b", None))
 J_PREFILL_REPS = 3  # each prefill time is the median of this many
+# phase K: the VLM, audio and largest dense configs at the same shape.
+# qwen2-vl-72b's 80 layers hold 72.7 B params (145 GB) and llama3-405b's
+# 126 hold 405.9 B (812 GB), so 8 (9.51 B) and 4 (16.95 B) of them run;
+# musicgen-large runs whole. The VLM's 256 patch embeddings sit at slots
+# 64-319 of every row, a 16 x 16 image grid
+K_MODELS = (("K.1", "qwen2-vl-72b", 8),
+            ("K.2", "musicgen-large", None),
+            ("K.3", "llama3-405b", 4))
+K_VISION_START = 64
 WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2473,10 +2507,101 @@ def routing_flips(params, cfg, batch, kw, lm, moe_mod) -> dict:
                                     for r in range(B)]}
 
 
+def mrope_positions(S: int, start: int, side: int, device) -> torch.Tensor:
+    """(3, LM_BATCH, S) int32 M-RoPE positions: text slots hold their own
+    index in all three components (so decode's default positions, the
+    cache index, continue them), and slot (r, c) of the side x side image
+    grid at `start` (row-major) holds (start, start + r, start + c)."""
+    pos = torch.arange(S, dtype=torch.int32).expand(3, LM_BATCH, S).clone()
+    r, c = np.divmod(np.arange(side * side), side)
+    grid = slice(start, start + side * side)
+    pos[0, :, grid] = start
+    pos[1, :, grid] = torch.from_numpy(start + r).to(torch.int32)
+    pos[2, :, grid] = torch.from_numpy(start + c).to(torch.int32)
+    return pos.to(device)
+
+
+def lm_prompt(cfg, rng, device) -> dict:
+    """The phase's seeded prompt: (LM_BATCH, LM_PROMPT) tokens, or the
+    audio model's (LM_BATCH, K, LM_PROMPT) grid; the VLM's also carries
+    `vision_tokens` float32 patch embeddings (numpy's seeded normal) at
+    the contiguous slots of a square image grid from K_VISION_START, and
+    its M-RoPE positions (`mrope_positions`)."""
+    shape = ((LM_BATCH, cfg.n_codebooks, LM_PROMPT) if cfg.family == "audio"
+             else (LM_BATCH, LM_PROMPT))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape).astype(np.int32)).to(device)}
+    if cfg.family == "vlm":
+        nv = cfg.vision_tokens
+        side = int(round(nv**0.5))
+        check(side * side == nv and K_VISION_START + nv <= LM_PROMPT,
+              f"{cfg.name}: {nv} vision tokens from slot {K_VISION_START}")
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (LM_BATCH, nv, cfg.d_model)).astype(np.float32)).to(device)
+        batch["vision_pos"] = torch.arange(
+            K_VISION_START, K_VISION_START + nv, dtype=torch.int32,
+            device=device).expand(LM_BATCH, nv).contiguous()
+        batch["positions"] = mrope_positions(LM_PROMPT, K_VISION_START,
+                                             side, device)
+    return batch
+
+
+def extended(batch: dict, tok: torch.Tensor) -> dict:
+    """`batch` with one more token a row (a codebook) at the end; M-RoPE
+    positions continue with the slot's index in all three components."""
+    out = dict(batch, tokens=torch.cat(
+        [batch["tokens"], tok.to(batch["tokens"].dtype)], -1))
+    if "positions" in batch:
+        pos = batch["positions"]
+        out["positions"] = torch.cat([pos, torch.full_like(
+            pos[..., :1], pos.shape[-1])], -1)
+    return out
+
+
+def last_rows(logits: torch.Tensor, V: int) -> torch.Tensor:
+    """The last position's logits over the real vocabulary as (rows, V)
+    float32: a row a sequence, the audio model's a (sequence, codebook)."""
+    return logits[:, -1][..., :V].reshape(-1, V).float()
+
+
+def vlm_checks(params, cfg, batch, tf, layers) -> dict:
+    """K.1 on the card: the embedding rows at `vision_pos` are the vision
+    embeds cast to bf16, bit for bit; M-RoPE angles of three equal
+    components are standard RoPE's, bit for bit; and the prompt's angles
+    differ from standard ones exactly on the image grid's slots but its
+    first, (t0, t0, t0)."""
+    x = tf.embed_tokens(params, cfg, batch)
+    rows = torch.arange(LM_BATCH, device=x.device)[:, None]
+    vis = batch["vision_embeds"].to(x.dtype)
+    check(torch.equal(x[rows, batch["vision_pos"].long()], vis),
+          "K.1 vision rows are not the vision embeds cast to bf16")
+    del x
+    standard = cfg.with_(rope_style="standard")
+    text = torch.arange(LM_PROMPT, dtype=torch.int32,
+                        device=vis.device).expand(LM_BATCH, -1)
+    plain = layers.rope_angles(standard, text)
+    check(torch.equal(layers.rope_angles(cfg, text.expand(3, -1, -1)),
+                      plain),
+          "K.1 M-RoPE with equal components != standard RoPE")
+    differs = (layers.rope_angles(cfg, batch["positions"])
+               != plain).any(-1)  # (B, S)
+    nv = cfg.vision_tokens
+    want = torch.zeros_like(differs)
+    want[:, K_VISION_START + 1:K_VISION_START + nv] = True
+    check(torch.equal(differs, want),
+          f"K.1 M-RoPE angles differ at {int(differs.sum())} slots, not "
+          f"the image grid's {LM_BATCH * (nv - 1)}")
+    return {"vision_rows_bit_equal": True,
+            "mrope_equal_components_bit_equal": True,
+            "mrope_slots_differing": int(differs.sum())}
+
+
 def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
-    """One model of phase J, freed on return (see `lm_family_phase`)."""
+    """One model of phase J or K, freed on return (see
+    `lm_family_phase`)."""
     from repro_torch.configs.base import param_count_dense
     from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
     from repro_torch.serving import engine as lm
@@ -2507,9 +2632,9 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
         rec["capacity_prefill"] = moe_mod.capacity(cfg, LM_BATCH * LM_PROMPT)
         rec["capacity_decode"] = moe_mod.capacity(cfg, LM_BATCH)
     rng = np.random.default_rng(seed)
-    prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
-    batch = {"tokens": prompt}
+    batch = lm_prompt(cfg, rng, device)
+    if cfg.family == "vlm":
+        rec.update(vlm_checks(params, cfg, batch, tf, layers_mod))
     cache_len = LM_PROMPT + LM_GEN + 4  # as launch/serve.py
     kw = dict(cache_len=cache_len, cache_dtype=cache_dtype)
     every = dict.fromkeys(ops.launch_counts(), 0)  # the whole run's
@@ -2530,7 +2655,9 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
     check(set(counts.values()) == {0},
           f"{tag} blocked generate launched a kernel: {counts}")
     toks = res.tokens
-    check(toks.shape == (LM_BATCH, LM_GEN), f"{tag} tokens {toks.shape}")
+    want_shape = ((LM_BATCH, cfg.n_codebooks, LM_GEN)
+                  if cfg.family == "audio" else (LM_BATCH, LM_GEN))
+    check(toks.shape == want_shape, f"{tag} tokens {toks.shape}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{tag} generated token out of range")
     rec["generate_tokens_per_s"] = LM_BATCH * LM_GEN / rec["generate_ms"] \
@@ -2546,7 +2673,7 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
     # every comparison reads the real vocabulary: the padded tail holds
     # -1e30 (`unembed`), which would make each row's spread ~1e30
     V = cfg.vocab_size
-    lb = pre_b.logits[:, -1, :V].float()
+    lb = last_rows(pre_b.logits, V)
     check(bool(torch.isfinite(lb).all()), f"{tag} blocked prefill logits")
     caches = pre_b.caches
     # the checked flash prefill's launches (the kernel table's count)
@@ -2573,13 +2700,13 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
             check(torch.equal(getattr(ff, f), getattr(fb, f)),
                   f"{tag} layer 0 cache {f} differs between flash and "
                   f"blocked")
-        lf = pre_f.logits[:, -1, :V].float()
+        lf = last_rows(pre_f.logits, V)
         check(bool(torch.isfinite(lf).all()), f"{tag} flash prefill logits")
         rec["prefill_logit_diff_frac"] = logit_diff_frac(lf, lb)
         rows = [logit_diff_frac(lf[r:r + 1], lb[r:r + 1])
-                for r in range(LM_BATCH)]
+                for r in range(lb.shape[0])]  # audio: (sequence, codebook)
         rec["prefill_row_diff_fracs"] = rows
-        held = list(range(LM_BATCH))
+        held = list(range(lb.shape[0]))
         if cfg.family == "moe":
             # a row whose last token kept other experts (or was dropped, or
             # kept) in one prefill than in the other took another
@@ -2612,17 +2739,16 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
         caches = pre_f.caches
         del pre_f
 
-    # J.3, J.4: prefill(S) + decode(1) against the train-mode forward of
-    # S + 1 tokens (no capacity drops in these families)
+    # all but the MoE families (whose decode drops tokens at capacity 1):
+    # prefill(S) + decode(1) against the train-mode forward of S + 1 tokens
     tok = torch.from_numpy(toks).to(device)
-    if cfg.family in ("ssm", "hybrid"):
-        dec = lm.decode_step(params, cfg, {"tokens": tok[:, :1]},
+    if cfg.family != "moe":
+        dec = lm.decode_step(params, cfg, {"tokens": tok[..., :1]},
                              pre_b.caches, LM_PROMPT)
-        full = tf.forward(params, cfg, {"tokens": torch.cat(
-            [prompt, tok[:, :1].to(prompt.dtype)], 1)}, mode="train",
-            logits_mode="last")
+        full = tf.forward(params, cfg, extended(batch, tok[..., :1]),
+                          mode="train", logits_mode="last")
         rec["decode_vs_forward_frac"] = logit_diff_frac(
-            dec.logits[:, -1, :V], full.logits[:, -1, :V])
+            last_rows(dec.logits, V), last_rows(full.logits, V))
         check(rec["decode_vs_forward_frac"] <= SPREAD_FRAC,
               f"{tag} prefill + decode vs the full forward "
               f"{rec['decode_vs_forward_frac']:.4f} of the spread")
@@ -2633,11 +2759,12 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
     step_ms, gaps = [], []
     for t in range(LM_GEN - 1):
         out, ms = synced_ms(lambda: lm.decode_step(
-            params, cfg, {"tokens": tok[:, t:t + 1]}, caches, LM_PROMPT + t))
+            params, cfg, {"tokens": tok[..., t:t + 1]}, caches,
+            LM_PROMPT + t))
         caches = out.caches
-        logits = out.logits[:, -1, :V]
+        logits = last_rows(out.logits, V)
         check(bool(torch.isfinite(logits).all()), f"{tag} decode {t} logits")
-        gaps.append(gap_frac(logits, tok[:, t + 1]))
+        gaps.append(gap_frac(logits, tok[..., t + 1].reshape(-1)))
         step_ms.append(ms)
     rec.update(decode_ms_per_step=statistics.median(step_ms),
                decode_ms_steps=step_ms, decode_gap_frac_max=max(gaps),
@@ -2648,7 +2775,7 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
               f"is {max(gaps):.4f} of the spread below the max")
     step = LM_PROMPT + LM_GEN - 1  # a cache row not written yet
     rec["profile_decode"] = device_profile(lambda: lm.decode_step(
-        params, cfg, {"tokens": tok[:, -1:]}, caches, step))
+        params, cfg, {"tokens": tok[..., -1:]}, caches, step))
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     tally()
     rec["all_launches"] = every
@@ -2656,17 +2783,19 @@ def family_run(tag: str, arch: str, layers, seed: int, device, ops) -> dict:
     return rec
 
 
-def lm_family_phase(seed: int, device, ops, card: str) -> dict:
-    """Phase J: `J_MODELS` one at a time, each freed (and the allocator
-    emptied) before the next; nothing of an earlier phase may hold the
-    card's memory. Returns the records and the launches of the checked
-    flash prefills; every launch of the phase must be a flash one."""
+def lm_family_phase(seed: int, device, ops, card: str, models=J_MODELS,
+                    phase: str = "J") -> dict:
+    """Phase J (or K, with `K_MODELS`): the models one at a time, each
+    freed (and the allocator emptied) before the next; nothing of an
+    earlier phase may hold the card's memory. Returns the records and the
+    launches of the checked flash prefills; every launch of the phase must
+    be a flash one."""
     t_phase = time.perf_counter()
     gc.collect()  # nothing of the earlier phases' models may linger
     torch.cuda.empty_cache()
     rec = {"bytes_before": torch.cuda.memory_allocated(), "models": []}
     launches, every = {}, {}
-    for tag, arch, layers in J_MODELS:
+    for tag, arch, layers in models:
         m = family_run(tag, arch, layers, seed, device, ops)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2685,13 +2814,18 @@ def lm_family_phase(seed: int, device, ops, card: str) -> dict:
                  if m["attention_invocations"] else "")
         full = (f"decode vs full forward {m['decode_vs_forward_frac']:.4f} "
                 f"of the spread, " if "decode_vs_forward_frac" in m else "")
-        caps = (f"capacity prefill {m['capacity_prefill']} decode "
+        notes = (f"capacity prefill {m['capacity_prefill']} decode "
                 f"{m['capacity_decode']} (group, slots), "
                 if "capacity_prefill" in m else "")
+        if "mrope_slots_differing" in m:
+            notes += (f"vision rows bit-equal to the bf16 embeds, M-RoPE with "
+                     f"equal components bit-equal to standard RoPE, "
+                     f"{m['mrope_slots_differing']} (row, slot) angle sets "
+                     f"off standard (the image grids), ")
         print(f"phase {tag} ({arch}, {m['layers']} of {m['of_layers']} "
               f"layers, bf16, batch {LM_BATCH}, prompt {LM_PROMPT}, "
               f"{m['cache_dtype']} cache; {card}): {m['n_params']} params "
-              f"({m['weight_bytes']} B), {caps}prefill blocked "
+              f"({m['weight_bytes']} B), {notes}prefill blocked "
               f"{m['prefill_blocked_ms']:.1f} ms, {flash}{full}decode "
               f"{m['decode_ms_per_step']:.2f} ms/step "
               f"({m['decode_tokens_per_s']:.1f} tok/s), generate "
@@ -2702,12 +2836,13 @@ def lm_family_phase(seed: int, device, ops, card: str) -> dict:
               f"card in {prof['wall_ms']:.2f} ms (idle share "
               f"{prof['idle_share']}); {m['seconds']:.1f} s", flush=True)
     check(sum(every.values()) == every["flash_attention"],
-          f"a port kernel other than flash launched in phase J: {every}")
+          f"a port kernel other than flash launched in phase {phase}: "
+          f"{every}")
     rec["launches"] = launches
     rec["all_launches"] = every
     rec["seconds"] = time.perf_counter() - t_phase
-    print(f"phase J took {rec['seconds']:.1f} s; launches {launches}; "
-          f"{rec['bytes_before']} B held by earlier phases", flush=True)
+    print(f"phase {phase} took {rec['seconds']:.1f} s; launches {launches};"
+          f" {rec['bytes_before']} B held by earlier phases", flush=True)
     return rec
 
 
@@ -3276,6 +3411,9 @@ def main(argv=None) -> int:
     # -- phase J: the MoE, SSM and hybrid families serving ----------------
     fam = lm_family_phase(args.seed, device, ops, card)
 
+    # -- phase K: the VLM, audio and largest dense configs serving --------
+    fam_k = lm_family_phase(args.seed, device, ops, card, K_MODELS, "K")
+
     for name, prof in (("A", a["profile"]), ("B", b["profile"])):
         print(f"phase {name} profile, one serve step: {prof['kernels']} "
               f"kernels ({prof['launches']} of the port's), "
@@ -3401,7 +3539,8 @@ def main(argv=None) -> int:
     gen_c = torch.Generator(device=device).manual_seed(args.seed + 2)
     kernels.append(flash_entries(gen_c, device, ops, ref,
                                  lm_rec["launches"]["flash_attention"]
-                                 + fam["launches"]["flash_attention"]))
+                                 + fam["launches"]["flash_attention"]
+                                 + fam_k["launches"]["flash_attention"]))
     kernels.append(int8_entry(int8_operands, ops, ref,
                               lm_rec["int8_launches"]))
 
@@ -3423,7 +3562,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_i=lm_train,
-                  phase_j=fam, phase_e=e,
+                  phase_j=fam, phase_k=fam_k, phase_e=e,
                   phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",

@@ -3,8 +3,8 @@ train / serve shapes, bundle.
 
 A copy of `repro/configs/base.py` (the port imports nothing of `repro`).
 Every `ModelConfig` field is kept, so a config carries across unchanged;
-fields of families the port does not serve yet (moe, ssm, hybrid, audio,
-vlm) are only read by `param_count_dense` and `active_param_count`.
+the port serves and trains every family the reference does (dense, moe,
+ssm, hybrid, audio, vlm).
 """
 from __future__ import annotations
 

@@ -142,12 +142,19 @@ def chunked_cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
 def lm_loss(params, cfg: ModelConfig, pcfg: ParallelConfig,
             batch: dict) -> tuple[torch.Tensor, dict]:
     """(loss, {"nll", "aux"}) of one microbatch (``tokens``, ``labels``
-    (B, S)); the dense family's aux loss is zero."""
+    (B, S), for the audio model (B, K, S); the VLM's ``vision_embeds``,
+    ``vision_pos`` and ``positions`` when given); the aux loss is zero
+    without experts. The audio model's loss is over its full (B, K, S, V)
+    logits, unchunked, as in the reference."""
     out = tf.forward(params, cfg, batch, mode="train", remat=pcfg.remat,
                      logits_mode="none")
     labels = torch.as_tensor(batch["labels"], device=out.hidden.device)
-    nll = chunked_cross_entropy(params, cfg, out.hidden, labels,
-                                pcfg.logit_chunk)
+    if cfg.family == "audio":
+        logits = tf.unembed(params, cfg, out.hidden)  # (B, S, K, V)
+        nll = _ce_from_logits(logits.movedim(2, 1), labels)
+    else:
+        nll = chunked_cross_entropy(params, cfg, out.hidden, labels,
+                                    pcfg.logit_chunk)
     loss = nll + cfg.router_aux_weight * out.aux_loss
     return loss, {"nll": nll, "aux": out.aux_loss}
 
@@ -159,7 +166,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                                   tuple[TrainState, dict]]:
     """``train_step(state, batch) -> (state', metrics)``. Batch leaves
     (numpy or tensors) have a leading gradient-accumulation axis:
-    tokens and labels (accum, mb, S), accum = `pcfg.accum_for(shape.name)`.
+    tokens and labels (accum, mb, S) (audio: (accum, mb, K, S)), the
+    VLM's vision_embeds (accum, mb, n_vis, D), vision_pos (accum, mb,
+    n_vis) and positions (accum, 3, mb, S); accum =
+    `pcfg.accum_for(shape.name)`, and microbatch i is every leaf's [i].
 
     Each microbatch's gradients are cast to float32 and summed in order,
     then divided by `accum`; then the optional int8 compression with

@@ -340,3 +340,17 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0):
         p = torch.where(mask, p, 0.0)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     return (torch.einsum("bqk,bkd->bqd", p, v.float()) / l).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, length_mask=None, scale=None):
+    """One query position against a cache (oracle): q (b, h, 1, d), k and
+    v (b, h, s, d), `length_mask` (b, s) bool marking the valid cache
+    slots (others get no weight; a row with none is NaN, as in the
+    reference). f32 inside; returns q's dtype."""
+    d = q.shape[-1]
+    scale = d**-0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if length_mask is not None:
+        s = torch.where(length_mask[:, None, None, :], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -6,8 +6,10 @@
 The port of `repro/launch/train.py`, with its flags plus `--device`: the
 arch's bundle with 2-way gradient accumulation, chunked cross-entropy
 (chunks of min(64, seq) tokens) and float32 AdamW states; weights from a
-generator seeded 0; batches from the synthetic token stream (seed 0),
-prefetched on a thread. `TrainLoop` checkpoints every
+generator seeded 0; batches from the synthetic token stream (seed 0;
+the audio model's with a codebook axis; the VLM's with random patch
+embeddings at distinct random slots, drawn from numpy seeded by the
+step), prefetched on a thread. `TrainLoop` checkpoints every
 `--checkpoint-every` steps and at the end into `--ckpt` (default: a
 directory under the temporary directory) and resumes from its latest
 checkpoint. Runs on `cuda` unless `--device cpu` is given.
@@ -18,6 +20,7 @@ import argparse
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import Checkpointer
@@ -57,13 +60,13 @@ def main(argv=None):
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     step_fn = tr.make_train_step(cfg, pcfg, shape, base_lr=3e-4, warmup=20,
                                  total_steps=args.steps)
-    mb = args.batch // ACCUM
 
     def batches():
+        books = cfg.n_codebooks if cfg.family == "audio" else 0
         for item in synthetic_token_stream(cfg.vocab_size, args.seq,
-                                           args.batch, seed=0):
-            yield {k: item[k].reshape(ACCUM, mb, args.seq)
-                   for k in ("tokens", "labels")}
+                                           args.batch, seed=0,
+                                           n_codebooks=books):
+            yield train_batch(cfg, item, args.seq)
 
     data = PrefetchIterator(batches(), depth=2)
     loop = TrainLoop(step_fn, Checkpointer(args.ckpt, keep=2, async_=True),
@@ -80,6 +83,26 @@ def main(argv=None):
         print(f"[train] done: steps {start}->{end}, loss "
               f"{losses[0]:.3f} -> {losses[-1]:.3f}")
     return state, loop
+
+
+def train_batch(cfg, item: dict, seq: int) -> dict:
+    """One stream item as the reference CLI lays it out: tokens and
+    labels (ACCUM, mb, S) (audio: (ACCUM, mb, K, S)), and for the VLM
+    float32 vision_embeds (ACCUM, mb, n_vis, D) and vision_pos (ACCUM,
+    mb, n_vis), each microbatch's slots distinct, drawn from numpy seeded
+    by the item's step."""
+    mb = item["tokens"].shape[0] // ACCUM
+    out = {k: item[k].reshape((ACCUM, mb) + item[k].shape[1:])
+           for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        nv = cfg.vision_tokens
+        rng = np.random.default_rng(int(item["step"]))
+        out["vision_embeds"] = rng.normal(
+            size=(ACCUM, mb, nv, cfg.d_model)).astype(np.float32)
+        out["vision_pos"] = np.stack([
+            rng.choice(seq, size=(mb, nv), replace=False)
+            for _ in range(ACCUM)]).astype(np.int32)
+    return out
 
 
 if __name__ == "__main__":

@@ -111,20 +111,35 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 # RoPE
 # ---------------------------------------------------------------------------
 def rope_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """1 / theta ** (2i / rot), float32. The power is taken in float64 and
+    rounded: XLA's float32 power is the correctly rounded one, torch's
+    float32 `pow` is not (one frequency of theta 1e6 at rot 128 lands an
+    ulp off), so this gives the reference's bits."""
     rot = int(cfg.head_dim * cfg.rope_fraction)
     assert rot % 2 == 0
     exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
-    return 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                        device=device), exps)
+    theta = torch.full((), cfg.rope_theta, dtype=torch.float32,
+                       device=device)
+    return 1.0 / torch.pow(theta.double(), exps.double()).float()
 
 
 def rope_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """positions (B, S) int -> angles (B, S, rot/2) f32 (standard RoPE)."""
-    if cfg.rope_style == "mrope":
-        raise NotImplementedError(
-            "M-RoPE (the VLM family) is not ported yet; see ROADMAP.md, "
-            "queue A.5")
+    """positions: standard (B, S) int, or M-RoPE (3, B, S) -> angles
+    (B, S, rot/2) f32.
+
+    M-RoPE computes every component's angles, `pos * inv_freq`, and takes
+    component i for the `mrope_sections[i]` frequencies: the same products
+    as the reference, so the same float32 bits."""
     inv_freq = rope_inv_freq(cfg, positions.device)
+    if cfg.rope_style == "mrope":
+        if positions.dim() != 3 or positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        ang3 = positions[..., None].float() * inv_freq  # (3, B, S, rot/2)
+        idx = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                    device=positions.device)
+                         for i, s in enumerate(cfg.mrope_sections)])
+        return ang3.gather(0, idx.expand(ang3.shape[1:])[None])[0]
     return positions[..., None].float() * inv_freq
 
 

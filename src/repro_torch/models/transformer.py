@@ -1,10 +1,16 @@
-"""Config-driven decoder LM: the dense family (qwen3-8b with qk-norm,
-qwen2.5-3b with qkv bias and tied embeddings, chatglm3-6b with partial
-rotary), MoE (phi3.5-moe: 16 experts top-2; llama4-maverick: 128 experts
-top-1 with a shared expert, dense and MoE layers alternating), SSM
-(mamba2-1.3b, SSD) and hybrid (zamba2-1.2b: a Mamba2 backbone with one
+"""Config-driven decoder LM: the dense family (llama3-405b, qwen3-8b with
+qk-norm, qwen2.5-3b with qkv bias and tied embeddings, chatglm3-6b with
+partial rotary), MoE (phi3.5-moe: 16 experts top-2; llama4-maverick: 128
+experts top-1 with a shared expert, dense and MoE layers alternating),
+SSM (mamba2-1.3b, SSD) and hybrid (zamba2-1.2b: a Mamba2 backbone with one
 shared attention block before every `attn_every` layers and once before
-the remainder, each invocation with its own KV cache).
+the remainder, each invocation with its own KV cache), audio
+(musicgen-large: a (B, K, S) codebook grid whose K embeddings are summed
+at the input, the iMARS multi-table pooled lookup, and K output heads)
+and VLM (qwen2-vl-72b: M-RoPE over (3, B, S) positions, and precomputed
+patch embeddings scattered into the token embeddings at `vision_pos`;
+the vision tower is a stub, as in the reference). The audio and VLM
+models run the dense stack.
 
 The port of `repro/models/transformer.py` for training and serving. Layer
 params are stacked on a leading layer axis as in the reference; its
@@ -15,8 +21,8 @@ dense + MoE pair, each hybrid group) checkpointed with `remat="block"`
 run without grad. Decode writes the attention KV caches in place and
 returns new recurrent (conv, ssm) states, leaving the caller's untouched.
 The token embedding's gather has a deterministic backward
-(`layers.gather_rows`). The audio and VLM families raise
-`NotImplementedError` (ROADMAP.md, queue A.5).
+(`layers.gather_rows`), and the vision scatter is out of place, so
+autograd keeps it.
 """
 from __future__ import annotations
 
@@ -41,21 +47,20 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_layer
 from repro_torch.utils import resolve_device
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 class ModelOutput(NamedTuple):
     hidden: torch.Tensor | None  # (B, S, D) final hidden
-    logits: torch.Tensor | None  # (B, S_out, V)
+    logits: torch.Tensor | None  # (B, S_out, V) or (B, S_out, K, V)
     aux_loss: torch.Tensor
     caches: Any  # the family's cache tree (serve modes)
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the port "
-            f"runs {FAMILIES} (ROADMAP.md, queue A.5)")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}): one of "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -91,8 +96,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                          f"{device}")
     dt = param_dtype(cfg)
     V, D, L = cfg.padded_vocab, cfg.d_model, cfg.n_layers
-    params = {"embed": normal(generator, (V, D), 0.02, dt, device)}
-    if cfg.family == "dense":
+    # the audio model has one table and one output head a codebook
+    books = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    params = {"embed": normal(generator, books + (V, D), 0.02, dt, device)}
+    if cfg.family in ("dense", "vlm", "audio"):
         params["layers"] = _init_block(generator, cfg, device, "dense", (L,))
     elif cfg.family == "moe" and cfg.moe_layer_step == 1:
         params["layers"] = _init_block(generator, cfg, device, "moe", (L,))
@@ -116,7 +123,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                             ())
     params["final_norm"] = init_rms_norm(D, dt, device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(generator, (D, V), D**-0.5, dt, device)
+        params["lm_head"] = normal(generator, books + (D, V), D**-0.5, dt,
+                                   device)
     return params
 
 
@@ -183,15 +191,43 @@ def _stack(items: list):
 # embedding in / out
 # ---------------------------------------------------------------------------
 def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """(B, S, D): the tokens' rows; for the audio model the sum of the K
+    codebooks' rows of a (B, K, S) grid; for the VLM, with
+    `vision_embeds` (B, n_vis, D) given, those (cast to the model dtype)
+    in place of the rows at `vision_pos` (B, n_vis), written out of
+    place. Slots must not repeat within a row: the reference's scatter
+    gives a repeated slot no defined order."""
     _check_family(cfg)
-    return gather_rows(params["embed"], batch["tokens"].long())  # (B, S, D)
+    tokens = batch["tokens"].long()
+    if cfg.family == "audio":
+        return _audio_embed(params, tokens)
+    x = gather_rows(params["embed"], tokens)  # (B, S, D)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(x.dtype)
+        pos = batch["vision_pos"].long()
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        x = x.index_put((rows.expand_as(pos), pos), vis)
+    return x
+
+
+def _audio_embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, K, S), embed (K, V, D): each codebook's gather, summed
+    over K."""
+    table = params["embed"]
+    per = torch.stack([gather_rows(table[k], tokens[:, k])
+                       for k in range(table.shape[0])])  # (K, B, S, D)
+    return per.sum(0)
 
 
 def unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """h (B, S, D) -> logits (B, S, padded_V); the vocab-padding tail
-    (ids >= vocab_size) is -1e30 so argmax never emits a padded id."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ w
+    """h (B, S, D) -> logits (B, S, padded_V), or (B, S, K, padded_V) for
+    the audio model's K heads; the vocab-padding tail (ids >= vocab_size)
+    is -1e30 so argmax never emits a padded id."""
+    if cfg.family == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = h @ w
     if cfg.padded_vocab != cfg.vocab_size:
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(ids >= cfg.vocab_size, -1e30)
@@ -205,7 +241,10 @@ def default_positions(cfg: ModelConfig, batch: dict, B: int, S: int,
     dev = batch["tokens"].device
     pos = torch.arange(S, dtype=torch.int32, device=dev)[None, :] + int(
         offset)
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    if cfg.rope_style == "mrope":  # every component the same index
+        return pos[None].expand(3, B, S)
+    return pos
 
 
 # ---------------------------------------------------------------------------
@@ -225,15 +264,15 @@ def forward(
     attn_impl: str = "blocked",
     logits_mode: str = "auto",  # auto | none | last | all
 ) -> ModelOutput:
-    """The reference's `forward` for the dense, MoE, SSM and hybrid
-    families. Train mode records autograd (the blocked attention's custom
-    backward; `remat="block"` recomputes each layer's activations in the
-    backward); prefill and decode run without grad. Prefill returns the
-    family's cache tree (`serving/kv_cache.py`); decode writes the KV
-    caches of `caches` in place and returns them, with new recurrent
-    states. `aux_loss` is the experts' load-balancing loss summed over
-    layers (0 without experts). `batch` values may be numpy arrays or
-    tensors and move to the params' device."""
+    """The reference's `forward` for every family. Train mode records
+    autograd (the blocked attention's custom backward; `remat="block"`
+    recomputes each layer's activations in the backward); prefill and
+    decode run without grad. Prefill returns the family's cache tree
+    (`serving/kv_cache.py`); decode writes the KV caches of `caches` in
+    place and returns them, with new recurrent states. `aux_loss` is the
+    experts' load-balancing loss summed over layers (0 without experts).
+    `batch` values may be numpy arrays or tensors and move to the params'
+    device."""
     _check_family(cfg)
     if remat not in ("none", "block"):
         raise ValueError(f"remat {remat!r}: none or block")
@@ -248,7 +287,8 @@ def _forward(params, cfg, batch, mode, caches, cache_index, cache_len,
              cache_dtype, remat, attn_impl, logits_mode) -> ModelOutput:
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    B, S = batch["tokens"].shape
+    tokens = batch["tokens"]
+    B, S = tokens.shape[0], tokens.shape[-1]  # audio: (B, K, S)
     x = embed_tokens(params, cfg, batch)
     offset = cache_index if mode == "decode" else 0
     positions = default_positions(cfg, batch, B, S, offset=offset)
@@ -256,7 +296,7 @@ def _forward(params, cfg, batch, mode, caches, cache_index, cache_len,
     ctx = _Ctx(cfg, positions, mode, cache_index, cache_len, cache_dtype,
                remat, attn_impl)
     aux = None
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
         x, aux, caches = _transformer_stack(params, ctx, x, caches)
     elif cfg.family == "ssm":
         x, caches = _mamba_stack(params["layers"], cfg.n_layers, ctx, x,
@@ -314,10 +354,11 @@ def _parts(cfg: ModelConfig) -> tuple:
 
 
 def _transformer_stack(params, ctx: _Ctx, x, caches):
-    """The dense and MoE stacks: prefill stacks the new caches (a dict of
-    two stacks for llama4's pairs), decode writes into `caches` in place,
-    and train mode checkpoints each step under `remat="block"`. The aux
-    loss is the experts' sum, None without experts."""
+    """The dense (also the audio and VLM models') and MoE stacks: prefill
+    stacks the new caches (a dict of two stacks for llama4's pairs),
+    decode writes into `caches` in place, and train mode checkpoints each
+    step under `remat="block"`. The aux loss is the experts' sum, None
+    without experts."""
     cfg, parts = ctx.cfg, _parts(ctx.cfg)
     n_steps = cfg.n_layers // len(parts)
     decode = ctx.mode == "decode"

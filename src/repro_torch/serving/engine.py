@@ -1,10 +1,10 @@
 """LM prefill / decode steps and a batched greedy generation engine.
 
-The port of `repro/serving/engine.py` for the dense, MoE, SSM and hybrid
-families. There is no `jax.jit`: each step runs eagerly on the params'
-device. Decode updates the KV caches in place (see `models/attention.py`)
-and returns new recurrent states (`serving/kv_cache.py`); the SSM and
-hybrid families' states come out of the prefill's own scan.
+The port of `repro/serving/engine.py` for every family. There is no
+`jax.jit`: each step runs eagerly on the params' device. Decode updates
+the KV caches in place (see `models/attention.py`) and returns new
+recurrent states (`serving/kv_cache.py`); the SSM and hybrid families'
+states come out of the prefill's own scan.
 """
 from __future__ import annotations
 
@@ -40,14 +40,17 @@ def decode_step(params, cfg: ModelConfig, batch: dict, caches: Any,
 
 @dataclasses.dataclass
 class GenerationResult:
-    tokens: np.ndarray  # (B, n_generated) int32
+    tokens: np.ndarray  # (B, n_generated), audio (B, K, n_generated); int32
 
 
 class LMServingEngine:
     """Synchronous batched engine: prefill once, greedy-decode n steps.
 
     The argmax runs on the card; the chosen tokens come back to the host
-    once per step, as in the reference.
+    once per step, as in the reference. The audio model takes and makes a
+    (B, K) token grid a step; the prompt's other inputs (the VLM's vision
+    embeddings, slots and positions) go to the prefill only, and decode
+    positions are the cache index.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
@@ -64,11 +67,11 @@ class LMServingEngine:
         out = prefill(self.params, cfg, prompt_batch,
                       cache_len=self.cache_len, cache_dtype=self.cache_dtype)
         caches = out.caches
-        tok = out.logits[:, -1].argmax(-1)  # greedy
+        tok = out.logits[:, -1].argmax(-1)  # greedy; audio (B, K)
         toks = [tok.to(torch.int32).cpu().numpy()]
         index = prompt_len
         for _ in range(n_steps - 1):
-            out = decode_step(self.params, cfg, {"tokens": tok[:, None]},
+            out = decode_step(self.params, cfg, {"tokens": tok[..., None]},
                               caches, index)
             caches = out.caches
             tok = out.logits[:, -1].argmax(-1)

@@ -3,8 +3,8 @@
 The port of `repro/serving/kv_cache.py`. int8 KV caches follow the iMARS
 ET format: int8 values and one f32 scale per (position, head) over
 head_dim. The trees:
-- dense, and MoE with every layer MoE: one KVCacheView stacked over the
-  layers;
+- dense (also the audio and VLM models), and MoE with every layer MoE:
+  one KVCacheView stacked over the layers;
 - MoE with alternating dense / MoE layers (llama4): ``{"dense": view,
   "moe": view}``, each stacked over half the layers;
 - SSM: ``(conv, ssm)`` float32 states stacked over the layers;
@@ -56,8 +56,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     "decode")`, on `device` (default `cuda`)."""
     device = resolve_device(device)
     L = cfg.n_layers
-    if cfg.family == "dense" or (cfg.family == "moe"
-                                 and cfg.moe_layer_step == 1):
+    if cfg.family in ("dense", "vlm", "audio") or (
+            cfg.family == "moe" and cfg.moe_layer_step == 1):
         return _kv_view(cfg, (L,), batch, cache_len, dtype, device)
     if cfg.family == "moe":
         return {k: _kv_view(cfg, (L // 2,), batch, cache_len, dtype, device)
@@ -73,9 +73,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return (_kv_view(cfg, (groups,), batch, cache_len, dtype, device),
                 _ssm_states(cfg, (groups, cfg.attn_every), batch, device),
                 rem_state)
-    raise NotImplementedError(
-        f"caches of family {cfg.family!r} are not ported yet (ROADMAP.md, "
-        f"queue A.5)")
+    raise ValueError(f"no cache tree for family {cfg.family!r}")
 
 
 def cache_bytes(cache) -> int:

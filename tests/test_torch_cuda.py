@@ -1324,11 +1324,14 @@ def test_new_families_flash_prefill_on_the_card(cuda, arch, n_attn):
     assert bool(((lf - lb).abs().max(-1).values <= 0.05 * spread).all())
 
 
-@pytest.mark.parametrize("bh,d", [(160, 128), (128, 64)])
+@pytest.mark.parametrize("bh,d", [(160, 128), (128, 64), (256, 128),
+                                  (512, 128)])
 def test_flash_attention_at_the_new_families_shapes(cuda, bh, d):
-    """The prefill shapes of llama4-maverick (40 heads x batch 4, d 128)
-    and zamba2 (32 heads x batch 4, d 64) at 2,048 tokens, bf16 causal,
-    against the plain version (2e-2, as every bf16 case)."""
+    """The prefill shapes of llama4-maverick (40 heads x batch 4, d 128),
+    zamba2 and musicgen-large (32 heads x batch 4, d 64), qwen2-vl-72b (64
+    heads x batch 4) and llama3-405b (128 heads x batch 4, d 128) at 2,048
+    tokens, bf16 causal, against the plain version (2e-2, as every bf16
+    case)."""
     gen = torch.Generator(device=cuda).manual_seed(bh + d)
     q, k, v = (torch.randn((bh, 2048, d), generator=gen, device=cuda)
                .to(torch.bfloat16) for _ in range(3))
@@ -1339,3 +1342,104 @@ def test_flash_attention_at_the_new_families_shapes(cuda, bh, d):
     want = ref.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the VLM, audio and largest dense configs
+# ---------------------------------------------------------------------------
+VLM_AUDIO_DENSE = ("qwen2-vl-72b", "musicgen-large", "llama3-405b")
+
+
+def _prompt(cfg, B, S, seed):
+    """numpy tokens (the audio model's (B, K, S) grid); for the VLM also
+    float32 patch embeddings at slots 2.. of every row and (3, B, S)
+    M-RoPE positions whose components differ there."""
+    rng = np.random.default_rng(seed)
+    shape = (B, cfg.n_codebooks, S) if cfg.family == "audio" else (B, S)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.family == "vlm":
+        nv = cfg.vision_tokens
+        out["vision_embeds"] = rng.standard_normal(
+            (B, nv, cfg.d_model)).astype(np.float32)
+        out["vision_pos"] = np.broadcast_to(
+            np.arange(2, 2 + nv, dtype=np.int32), (B, nv)).copy()
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+        pos[1, :, 2:2 + nv] += np.arange(nv, dtype=np.int32)
+        pos[2, :, 2:2 + nv] -= np.arange(nv, dtype=np.int32)
+        out["positions"] = pos
+    return out
+
+
+def _cut(batch, n):
+    out = dict(batch, tokens=batch["tokens"][..., :n])
+    if "positions" in batch:
+        out["positions"] = batch["positions"][..., :n]
+    return out
+
+
+@pytest.mark.parametrize("arch", VLM_AUDIO_DENSE)
+def test_vlm_audio_dense_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced float32 configs with TF32 off: train-mode logits, lm_loss,
+    prefill logits and a decode step from the CPU's cache carried to the
+    card, within 1e-4 of the largest logit (the loss within 1e-5
+    relative: float32 sums in cuBLAS's order); the audio model's K
+    codebook rows are summed in the same order on both devices. No port
+    kernel launches on the blocked path."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import engine as teng
+
+    cfg, cpu_p, gpu_p = _family_setup(arch)
+    b = _prompt(cfg, 2, 17, seed=1)
+    tol = 1e-4
+
+    def close(g, c):
+        c = c.float()
+        assert (g.float().cpu() - c).abs().max() <= tol * c.abs().max()
+
+    ops.reset_launches()
+    outs = [ttf.forward(p, cfg, b, mode="train", logits_mode="all")
+            for p in (cpu_p, gpu_p)]
+    close(outs[1].logits, outs[0].logits)
+    labels = np.roll(b["tokens"], -1, axis=-1)
+    pcfg = ParallelConfig(logit_chunk=8)
+    losses = [training.lm_loss(p, cfg, pcfg, {**b, "labels": labels})[0]
+              for p in (cpu_p, gpu_p)]
+    np.testing.assert_allclose(float(losses[1]), float(losses[0]),
+                               rtol=1e-5)
+    pre = [teng.prefill(p, cfg, _cut(b, 16), cache_len=20,
+                        cache_dtype="bfloat16") for p in (cpu_p, gpu_p)]
+    close(pre[1].logits, pre[0].logits)
+    carried = tree_map(lambda t: t.cuda(), pre[0].caches)
+    last = {"tokens": b["tokens"][..., 16:]}
+    dec = [teng.decode_step(p, cfg, last, c, 16)
+           for p, c in ((cpu_p, pre[0].caches), (gpu_p, carried))]
+    close(dec[1].logits, dec[0].logits)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("arch", VLM_AUDIO_DENSE)
+def test_vlm_audio_dense_flash_prefill_on_the_card(cuda, arch):
+    """bf16 weights: the flash prefill launches the kernel once a layer,
+    and its last-token logits agree with the blocked prefill's within 5%
+    of each row's spread (the audio model's: each codebook's) over the
+    real vocabulary."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import engine as teng
+
+    cfg = reduce_config(get_arch(arch).model).with_(dtype="bfloat16")
+    params = ttf.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), cuda)
+    b = _prompt(cfg, 2, 64, seed=2)
+    kw = dict(cache_len=72, cache_dtype="int8")
+    blocked = teng.prefill(params, cfg, b, **kw)
+    ops.reset_launches()
+    flash = teng.prefill(params, cfg, b, attn_impl="flash", **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert sum(counts.values()) == cfg.n_layers
+    V = cfg.vocab_size
+    lb, lf = (o.logits[:, -1][..., :V].reshape(-1, V).float()
+              for o in (blocked, flash))
+    spread = lb.max(-1).values - lb.min(-1).values
+    assert bool(((lf - lb).abs().max(-1).values <= 0.05 * spread).all())

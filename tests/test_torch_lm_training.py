@@ -142,14 +142,29 @@ def _params(jcfg, seed=0):
     return _bias(_np_tree(jtf.init_params(jcfg, jax.random.key(seed))), seed)
 
 
-def _lm_batch(vocab, accum, mb, S, seed=0):
-    """The reference tests' structured batch (odd tokens = even + 1)."""
+def _lm_batch(vocab, accum, mb, S, seed=0, cfg=None):
+    """The reference tests' structured batch (odd tokens = even + 1). With
+    `cfg` of the audio family, (accum, mb, K, S) codebook grids; of the
+    VLM, also float32 patch embeddings at distinct slots of each row and
+    (accum, 3, mb, S) M-RoPE positions whose components differ."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, (accum, mb, S + 1))
+    books = (cfg.n_codebooks,) if cfg is not None and \
+        cfg.family == "audio" else ()
+    toks = rng.integers(0, vocab, (accum, mb) + books + (S + 1,))
     toks[..., 1::2] = (toks[..., 0::2][..., : toks[..., 1::2].shape[-1]]
                        + 1) % vocab
-    return {"tokens": toks[..., :-1].astype(np.int32),
-            "labels": toks[..., 1:].astype(np.int32)}
+    out = {"tokens": toks[..., :-1].astype(np.int32),
+           "labels": toks[..., 1:].astype(np.int32)}
+    if cfg is not None and cfg.family == "vlm":
+        nv = cfg.vision_tokens
+        out["vision_embeds"] = rng.standard_normal(
+            (accum, mb, nv, cfg.d_model)).astype(np.float32)
+        out["vision_pos"] = np.stack([[rng.choice(S, nv, replace=False)
+                                       for _ in range(mb)]
+                                      for _ in range(accum)]).astype(np.int32)
+        out["positions"] = rng.integers(
+            0, 4 * S, (accum, 3, mb, S)).astype(np.int32)
+    return out
 
 
 def _jb(batch):
@@ -362,7 +377,8 @@ def test_lm_loss_and_grads_match_reference(arch, remat):
     tree = _params(jcfg, seed=3)
     pj = JParallelConfig(remat=remat, logit_chunk=8)
     pt = tbase.ParallelConfig(remat=remat, logit_chunk=8)
-    mb = {k: v[0] for k, v in _lm_batch(jcfg.vocab_size, 1, 2, 16).items()}
+    mb = {k: v[0] for k, v in _lm_batch(jcfg.vocab_size, 1, 2, 16,
+                                         cfg=jcfg).items()}
     jl, jg = jax.value_and_grad(lambda p: jtr.lm_loss(p, jcfg, pj,
                                                       _jb(mb))[0])(
         jax.tree_util.tree_map(jnp.asarray, tree))
