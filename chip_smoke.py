@@ -185,7 +185,29 @@
    cast to bf16, M-RoPE of three equal components bit-equal to standard
    RoPE, and its prompt's angles off standard exactly on the grid. No
    port kernel but flash may launch in K.
-12. Phase C: each kernel against its plain version on the card at the
+12. Phase L: the sharded LM plan (`launch/steps.py`: the reference's
+   logical-axis rules as DTensor placements) on a world-size-1 NCCL group
+   (`file://` rendezvous in a temporary directory, removed at the end)
+   and the (data=1, model=1) mesh of `launch/mesh.py`. L.1: every LM
+   family that fits one card trains through `build_train_step` at
+   `ShapeConfig("card_train", "train", 2048, 4)` with accumulation 2,
+   each bundle's own remat, state dtype and logit chunks, seeded bf16
+   weights from a CUDA generator, one model at a time: qwen3-8b at phase
+   I's 4 layers, then phi3.5-moe at 2 of 32, mamba2-1.3b and
+   zamba2-1.2b whole, qwen2-vl-72b at 1 of 80 and musicgen-large at 45
+   of 48 (`L_MODELS`: fixed depths that leave at least 8 GB of the card
+   free; llama4-maverick's dense + MoE pair, 18.6 B params, and
+   llama3-405b do not train on one card). 3 steps each: finite losses;
+   the first step's `loss` and `grad_norm` equal bit for bit to the
+   unsharded `make_train_step`'s from the same state and batch, and its
+   new state too (every tensor by an exact integer digest); the blocked
+   attention's custom backward runs (not in the SSM); no port kernel
+   launches; ms a step (median of steps 2-3),
+   tokens/s, phase I's `mfu` (active params for the MoE), peak memory.
+   L.2: qwen3-8b at 4 layers, phase D's batch and prompt: the built
+   prefill and 4 built decodes give logits and int8 caches bit-equal to
+   the unsharded `prefill` / `decode_step`.
+13. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -216,9 +238,9 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, H, D, I, J, K, C in that order. Prints one line per
-phase (phase E's, F's, I's, J's and K's with the card's name and power
-limit), one line
+Runs A, B, E, F, G, H, D, I, J, K, L, C in that order. Prints one line
+per phase (phase E's, F's, I's, J's, K's and L's with the card's name
+and power limit), one line
 per kernel, the card's name and power limit as `nvidia-smi` gives them,
 a `kernels` JSON line, and last `{"ok": true, "device": {...}}`;
 `--record PATH` also writes the full record as JSON. Any failure exits
@@ -235,6 +257,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -365,6 +388,23 @@ K_MODELS = (("K.1", "qwen2-vl-72b", 8),
             ("K.2", "musicgen-large", None),
             ("K.3", "llama3-405b", 4))
 K_VISION_START = 64
+# phase L: the sharded LM plan on a (1, 1) mesh; (tag, arch, layers or
+# None for all): training at 2 x 2048 tokens a microbatch, accumulation
+# 2, 3 steps (the first checked against the unsharded step). Each cut
+# depth leaves at least 8 GB of the card free at the step's peak, by
+# phase I's ~28 B a param for float32 states (16 B for int8) and the
+# peaks the card showed; llama4-maverick (18.6 B params a layer pair)
+# and llama3-405b train no layer on one card
+L_MODELS = (("L.1a", "qwen3-8b", I_LAYERS),
+            ("L.1b", "phi3.5-moe-42b-a6.6b", 2),
+            ("L.1c", "mamba2-1.3b", None),
+            ("L.1d", "zamba2-1.2b", None),
+            ("L.1e", "qwen2-vl-72b", 1),
+            ("L.1f", "musicgen-large", 45))
+L_SEQ = 2048
+L_ACCUM = 2
+L_STEPS = 3
+L_DECODE_STEPS = 4
 WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2846,6 +2886,268 @@ def lm_family_phase(seed: int, device, ops, card: str, models=J_MODELS,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase L: the sharded LM plan (launch/steps.py) on a world-size-1 mesh
+# ---------------------------------------------------------------------------
+def train_batches(cfg, rng, device, n: int) -> list:
+    """`n` seeded train batches of (L_ACCUM, LM_BATCH // L_ACCUM, L_SEQ)
+    (the VLM's vision rows and M-RoPE positions as phase K's prompt
+    carries them, the accumulation axis leading): `lm_prompt`'s rows, and
+    labels drawn alike."""
+    mb = LM_BATCH // L_ACCUM
+    out = []
+    for _ in range(n):
+        p = lm_prompt(cfg, rng, device)
+        batch = {"tokens": p["tokens"], "labels": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, tuple(p["tokens"].shape))
+            .astype(np.int32)).to(device)}
+        for k in ("vision_embeds", "vision_pos"):
+            if k in p:
+                batch[k] = p[k]
+        batch = {k: v.reshape((L_ACCUM, mb) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        if "vision_embeds" in batch:
+            batch["vision_embeds"] = batch["vision_embeds"].to(
+                torch.bfloat16)
+        if "positions" in p:  # (3, B, S) -> (accum, 3, mb, S)
+            pos = p["positions"]
+            batch["positions"] = pos.reshape(
+                (3, L_ACCUM, mb) + tuple(pos.shape[2:])).transpose(0, 1)
+        out.append(batch)
+    return out
+
+
+def model_flops(cfg, params, tokens: int) -> int:
+    """Phase I's model flops a step: 6 a token for each weight that
+    multiplies (all but the input embedding; for the experts, the top-k
+    share), and 12 L H hd S a token for attention."""
+    n = 0
+    from repro_torch.distributed.sharding import tree_items
+
+    for path, t in tree_items(params):
+        if path == "embed" or path.startswith("embed/"):
+            continue
+        share = (cfg.moe_top_k / cfg.n_experts
+                 if "/moe/w" in "/" + path else 1.0)
+        n += t.numel() * share
+    attn = 12 * attention_invocations(cfg) * cfg.n_heads * cfg.head_dim \
+        * L_SEQ
+    return int(tokens * (6 * n + attn))
+
+
+def sharded_train_run(tag: str, arch: str, layers, seed: int, device, ops,
+                      mesh, attn_mod) -> dict:
+    """One model of L.1, freed on return."""
+    from repro_torch.configs.base import ArchBundle, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import training as tr
+    from repro_torch.launch import steps
+    from repro_torch.utils import tree_leaves
+
+    t_run = time.perf_counter()
+    bundle = get_arch(arch)
+    pcfg = bundle.parallel.with_(grad_accum={"card_train": L_ACCUM})
+    layers = layers or bundle.model.n_layers
+    cfg = bundle.model.with_(n_layers=layers)
+    total = torch.cuda.mem_get_info()[1]
+    shape = ShapeConfig("card_train", "train", L_SEQ, LM_BATCH)
+    built = steps.build_train_step(ArchBundle(cfg, pcfg), shape, mesh)
+    check(built.cfg == cfg, f"{tag}: the (1, 1) mesh changed the config")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state, init_ms = synced_ms(
+        lambda: tr.init_train_state(cfg, pcfg, gen, device))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    tokens = LM_BATCH * L_SEQ * (cfg.n_codebooks if cfg.family == "audio"
+                                 else 1)
+    rec = {"tag": tag, "arch": arch, "family": cfg.family,
+           "layers": layers, "of_layers": bundle.model.n_layers,
+           "n_params": n_params, "opt_state_dtype": pcfg.opt_state_dtype,
+           "remat": pcfg.remat, "logit_chunk": pcfg.logit_chunk,
+           "tokens_per_step": tokens, "init_ms": init_ms,
+           "model_flops_per_step": model_flops(cfg, state.params, tokens),
+           "card_bytes": total}
+    batches = train_batches(cfg, np.random.default_rng(seed), device,
+                            L_STEPS)
+    ops.reset_launches()
+    backward = attn_mod.BACKWARD_CALLS[0]
+    # the unsharded step from the same state and batch, its new state
+    # kept as digests (two states would not fit), then the built one
+    plain = tr.make_train_step(cfg, pcfg, shape)
+    s_plain, m_plain = plain(state, batches[0])
+    want = [bits_digest(t) for t in state_tensors(s_plain)]
+    del s_plain
+    dstate = built.shard(0, state)
+    del state
+    losses, norms, ms = [], [], []
+    for i, batch in enumerate(batches):
+        (dstate, m), t = synced_ms(lambda: built.fn(dstate,
+                                                    built.shard(1, batch)))
+        if i == 0:
+            for k in ("loss", "grad_norm"):
+                check(torch.equal(m[k], m_plain[k]),
+                      f"{tag} first step {k}: built {float(m[k])!r} != "
+                      f"unsharded {float(m_plain[k])!r}")
+            got = [bits_digest(t) for t in
+                   state_tensors(steps.full_tree(dstate))]
+            bad = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+            check(len(got) == len(want) and not bad,
+                  f"{tag} first step: the built state differs from the "
+                  f"unsharded step's at tensors {bad} of {len(want)}")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(t)
+    check(all(np.isfinite(losses + norms)),
+          f"{tag} losses {losses}, grad norms {norms}")
+    rec["attention_backward_calls"] = attn_mod.BACKWARD_CALLS[0] - backward
+    check((rec["attention_backward_calls"] > 0)
+          == (attention_invocations(cfg) > 0),
+          f"{tag} attention backward ran {rec['attention_backward_calls']}"
+          f" times")
+    rec["launches"] = ops.launch_counts()
+    check(set(rec["launches"].values()) == {0},
+          f"{tag}: a port kernel launched on the train path: "
+          f"{rec['launches']}")
+    med = statistics.median(ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(losses=losses, grad_norms=norms, step_ms=ms, ms_per_step=med,
+               tokens_per_s=tokens / med * 1e3,
+               mfu=rec["model_flops_per_step"] / (med / 1e3)
+               / BF16_TC_FLOPS,
+               first_step_equal=True, peak_bytes=peak,
+               free_at_peak_bytes=total - peak,
+               seconds=time.perf_counter() - t_run)
+    return rec
+
+
+def sharded_serve_run(seed: int, device, ops, mesh) -> dict:
+    """L.2: the built prefill and decodes against the unsharded ones."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import engine as lm
+    from repro_torch.utils import tree_leaves
+
+    t_run = time.perf_counter()
+    bundle = get_arch(LM_ARCH)
+    cfg = bundle.model.with_(n_layers=I_LAYERS)
+    bundle = dataclasses.replace(bundle, model=cfg)
+    cache_len = LM_PROMPT + LM_GEN + 4  # as phase D
+    pre = steps.build_prefill_step(
+        bundle, ShapeConfig("card_prefill", "prefill", cache_len,
+                            LM_BATCH), mesh)
+    dec = steps.build_decode_step(
+        bundle, ShapeConfig("card_decode", "decode", cache_len, LM_BATCH),
+        mesh)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = tf.init_params(cfg, gen, device)
+    batch = lm_prompt(cfg, np.random.default_rng(seed), device)
+    ops.reset_launches()
+    kw = dict(cache_len=cache_len, cache_dtype=bundle.parallel.kv_cache_dtype)
+    want = lm.prefill(params, cfg, batch, remat=bundle.parallel.remat, **kw)
+    dparams = pre.shard(0, params)
+    (logits, dcache), prefill_ms = synced_ms(
+        lambda: pre.fn(dparams, pre.shard(1, batch)))
+    check(torch.equal(logits, want.logits), "L.2 built prefill logits")
+    pairs = list(zip(tree_leaves(steps.full_tree(dcache)),
+                     tree_leaves(want.caches)))
+    check(all(torch.equal(a, b) for a, b in pairs),
+          "L.2 built prefill caches")
+    caches, tok = want.caches, want.logits[:, -1].argmax(-1)
+    ms = []
+    for i in range(L_DECODE_STEPS):
+        db = {"tokens": tok[:, None].to(torch.int32)}
+        want = lm.decode_step(params, cfg, db, caches, LM_PROMPT + i)
+        caches = want.caches
+        (logits, dcache), t = synced_ms(lambda: dec.fn(
+            dparams, dec.shard(1, db), dcache, LM_PROMPT + i))
+        ms.append(t)
+        check(torch.equal(logits, want.logits),
+              f"L.2 built decode {i} logits")
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(steps.full_tree(dcache)), tree_leaves(caches))),
+            f"L.2 built decode {i} int8 caches")
+        tok = want.logits[:, -1].argmax(-1)
+    launches = ops.launch_counts()
+    check(set(launches.values()) == {0},
+          f"L.2: a port kernel launched: {launches}")
+    return {"arch": LM_ARCH, "layers": I_LAYERS, "batch": LM_BATCH,
+            "prompt": LM_PROMPT, "cache_len": cache_len,
+            "prefill_ms": prefill_ms, "decode_ms": ms,
+            "decode_steps": L_DECODE_STEPS,
+            "seconds": time.perf_counter() - t_run}
+
+
+def sharded_phase(seed: int, device, ops, card: str) -> dict:
+    """Phase L: the step builders on a world-size-1 NCCL mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_of
+    from repro_torch.models import attention as attn_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()  # nothing of the earlier phases' models may linger
+    torch.cuda.empty_cache()
+    rec = {"bytes_before": torch.cuda.memory_allocated(), "models": []}
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rdv}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    # count the blocked attention's custom backward calls
+    backward = attn_mod._BlockedAttention.backward
+    attn_mod.BACKWARD_CALLS = [0]
+
+    def counted_backward(ctx, dout):
+        attn_mod.BACKWARD_CALLS[0] += 1
+        return backward(ctx, dout)
+
+    attn_mod._BlockedAttention.backward = staticmethod(counted_backward)
+    try:
+        mesh = make_mesh_of((1, 1), "cuda")
+        for tag, arch, layers in L_MODELS:
+            m = sharded_train_run(tag, arch, layers, seed, device, ops,
+                                  mesh, attn_mod)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["models"].append(m)
+            print(f"phase {tag} ({arch}, {m['layers']} of "
+                  f"{m['of_layers']} layers, {m['n_params']} params, bf16, "
+                  f"{m['opt_state_dtype']} AdamW, remat {m['remat']}, logit "
+                  f"chunk {m['logit_chunk']}, build_train_step on (data=1, "
+                  f"model=1); {card}): {m['ms_per_step']:.1f} ms/step "
+                  f"(median of steps 2-{L_STEPS}), "
+                  f"{m['tokens_per_s']:.0f} tokens/s, mfu {m['mfu']:.4f}, "
+                  f"losses {[round(x, 4) for x in m['losses']]}, first step "
+                  f"== unsharded step bit for bit (metrics, and the new "
+                  f"state by digests), attention backward "
+                  f"{m['attention_backward_calls']} calls, peak memory "
+                  f"{m['peak_bytes']} B of {m['card_bytes']} B; "
+                  f"{m['seconds']:.1f} s", flush=True)
+        rec["L2"] = sharded_serve_run(seed, device, ops, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        attn_mod._BlockedAttention.backward = staticmethod(backward)
+        del attn_mod.BACKWARD_CALLS
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    l2 = rec["L2"]
+    print(f"phase L.2 ({LM_ARCH}, {I_LAYERS} layers, batch {LM_BATCH}, "
+          f"prompt {LM_PROMPT}, int8 cache; {card}): built prefill "
+          f"{l2['prefill_ms']:.1f} ms and {L_DECODE_STEPS} built decodes "
+          f"({[round(x, 2) for x in l2['decode_ms']]} ms) bit-equal to the "
+          f"unsharded prefill / decode_step (logits and int8 caches)",
+          flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase L took {rec['seconds']:.1f} s; no port kernel launched; "
+          f"{rec['bytes_before']} B held by earlier phases", flush=True)
+    return rec
+
+
 def flash_times(q, k, v, kw, got, want, ops, ref) -> dict:
     """The flash kernel's device and wall ms at one shape, beside its
     bound (4 d flops a causal (row, key) pair at the bf16 tensor-core
@@ -3414,6 +3716,9 @@ def main(argv=None) -> int:
     # -- phase K: the VLM, audio and largest dense configs serving --------
     fam_k = lm_family_phase(args.seed, device, ops, card, K_MODELS, "K")
 
+    # -- phase L: the sharded LM plan, every family training -------------
+    sharded = sharded_phase(args.seed, device, ops, card)
+
     for name, prof in (("A", a["profile"]), ("B", b["profile"])):
         print(f"phase {name} profile, one serve step: {prof['kernels']} "
               f"kernels ({prof['launches']} of the port's), "
@@ -3562,7 +3867,7 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_i=lm_train,
-                  phase_j=fam, phase_k=fam_k, phase_e=e,
+                  phase_j=fam, phase_k=fam_k, phase_l=sharded, phase_e=e,
                   phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",

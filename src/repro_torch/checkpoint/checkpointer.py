@@ -12,6 +12,12 @@
   * async: `Checkpointer(async_=True)` copies the tree to host memory in
     the caller's thread (the next step may overwrite the device buffers)
     and writes the files on a background thread; `wait()` joins it.
+  * sharded trees: a DTensor leaf is saved whole (`full_tensor()`, a
+    collective every rank joins), and only rank 0 writes; `wait()` then
+    holds every rank at a barrier until the step is committed. A restore
+    places each leaf where `shardings` (a tree of `NamedSharding`s like
+    the template) says, or as its template leaf is placed when that is a
+    DTensor: a state saved from one mesh restores onto another.
 
 A tree is nested dicts, lists, tuples, NamedTuples and dataclasses (their
 init fields); its leaves are tensors, numpy arrays and numpy scalars.
@@ -91,9 +97,12 @@ def _leaf_filename(path) -> str:
 
 
 def _host(x) -> np.ndarray:
-    """A leaf as a host numpy array (bit views for bfloat16)."""
+    """A leaf as a host numpy array (bit views for bfloat16); a DTensor's
+    whole value."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if hasattr(x, "full_tensor"):
+            x = x.full_tensor()
         if x.dtype in _BIT_VIEWS:
             x = x.view(_BIT_VIEWS[x.dtype])
         return x.cpu().numpy()
@@ -108,10 +117,36 @@ def _fsync(path) -> None:
         os.close(fd)
 
 
+def _sharded(tree) -> bool:
+    return any(hasattr(leaf, "device_mesh") for _, leaf in _leaves(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes a sharded tree (rank 0 does)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save(directory: str | os.PathLike, step: int, tree: Any) -> pathlib.Path:
-    """Atomic synchronous save of `tree` as step `step`."""
-    return _write(directory, step,
-                  [(path, _host(leaf)) for path, leaf in _leaves(tree)])
+    """Atomic synchronous save of `tree` as step `step`. A sharded tree is
+    gathered on every rank, written by rank 0, and every rank returns
+    once it is committed."""
+    leaves = [(path, _host(leaf)) for path, leaf in _leaves(tree)]
+    final = pathlib.Path(directory) / f"step_{step:08d}"
+    if not _sharded(tree):
+        return _write(directory, step, leaves)
+    if _writer():
+        _write(directory, step, leaves)
+    _barrier()
+    return final
 
 
 def _write(directory, step: int, leaves) -> pathlib.Path:
@@ -162,15 +197,35 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 
 def restore(directory: str | os.PathLike, step: int, template: Any,
-            verify: bool = True) -> Any:
+            shardings: Any = None, verify: bool = True) -> Any:
     """Restore step `step` into the structure of `template`: each array
     leaf is read from its file (shapes come from the file), checked
-    against its CRC32, and placed on its template leaf's device."""
+    against its CRC32, and placed on its template leaf's device; a leaf
+    with a `NamedSharding` in `shardings` (a tree like the template), or
+    whose template leaf is a DTensor, becomes a DTensor placed so."""
+    from repro_torch.distributed.sharding import place_whole, tree_items
+
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((directory / "manifest.json").read_text())
     by_file = {leaf["file"]: leaf for leaf in manifest["leaves"]}
+    targets = dict(tree_items(shardings))  # {"a/b": NamedSharding}
 
     def load(path, tmpl):
+        arr = _load(path)
+        if not isinstance(tmpl, torch.Tensor):
+            return arr[()] if isinstance(tmpl, np.generic) else arr
+        target = targets.get("/".join(path))
+        if target is None and hasattr(tmpl, "device_mesh"):
+            mesh = tmpl.device_mesh
+            return place_whole(_tensor(arr, tmpl.dtype, mesh.device_type),
+                               mesh, tuple(tmpl.placements))
+        if target is None:
+            return _tensor(arr, tmpl.dtype, tmpl.device)
+        return target.place(_tensor(arr, tmpl.dtype,
+                                    target.mesh.device_type),
+                            what="/".join(path))
+
+    def _load(path):
         fname = _leaf_filename(path)
         if fname not in by_file:
             raise FileNotFoundError(f"checkpoint missing leaf {fname}")
@@ -178,16 +233,16 @@ def restore(directory: str | os.PathLike, step: int, template: Any,
         if verify and (zlib.crc32(arr.tobytes()) & 0xFFFFFFFF
                        != by_file[fname]["crc32"]):
             raise IOError(f"checksum mismatch for {fname}")
-        if isinstance(tmpl, torch.Tensor):
-            t = torch.from_numpy(arr)
-            if tmpl.dtype in _BIT_VIEWS:
-                t = t.view(tmpl.dtype)
-            return t.to(tmpl.device)
-        if isinstance(tmpl, np.generic):
-            return arr[()]
         return arr
 
     return _rebuild(template, (), load)
+
+
+def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    t = torch.from_numpy(arr)
+    if dtype in _BIT_VIEWS:
+        t = t.view(dtype)
+    return t.to(device)
 
 
 class Checkpointer:
@@ -201,11 +256,15 @@ class Checkpointer:
         self.async_ = async_
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._sharded = False  # the last save was of a sharded tree
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:  # every rank waits for rank 0's write
+            self._sharded = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -214,6 +273,10 @@ class Checkpointer:
         self.wait()
         # to host now: the caller's next step may overwrite the buffers
         leaves = [(path, _host(leaf).copy()) for path, leaf in _leaves(tree)]
+        if _sharded(tree):
+            self._sharded = True
+            if not _writer():
+                return
         if not self.async_:
             _write(self.directory, step, leaves)
             self._retain()
@@ -240,9 +303,11 @@ class Checkpointer:
     def latest(self) -> int | None:
         return latest_step(self.directory)
 
-    def restore_latest(self, template: Any):
+    def restore_latest(self, template: Any, shardings: Any = None):
+        """(step, tree) of the newest committed step, placed as `restore`
+        places it, or (None, None)."""
         self.wait()
         step = self.latest()
         if step is None:
             return None, None
-        return step, restore(self.directory, step, template)
+        return step, restore(self.directory, step, template, shardings)

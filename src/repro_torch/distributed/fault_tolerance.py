@@ -5,8 +5,10 @@ straggler detection, fault injection for tests (mirrors
 A dead process kills the step; the job restarts, `TrainLoop` resumes from
 the last committed checkpoint (`checkpoint/checkpointer.py`: atomic,
 checksummed), and the run continues bit for bit where the step itself is
-deterministic. One device: the reference's resharding on restore
-(`shardings`) waits for the port's multi-GPU plans.
+deterministic. A sharded state (DTensors, `launch/steps.py`) is saved
+whole by rank 0 and restores onto any mesh: `resume_or_init`'s
+`shardings` (a `NamedSharding` tree, `BuiltStep.shardings(0)`) says
+where each leaf goes, as the reference's does.
 
 A step flagged as a straggler (slower than `straggler_factor` times the
 moving average of step times) skips the checkpoint due on it, as in the
@@ -66,12 +68,14 @@ class TrainLoop:
         self.straggler_events: list[int] = []
         self._ema: float | None = None
 
-    def resume_or_init(self, init_state_fn: Callable[[], Any]):
+    def resume_or_init(self, init_state_fn: Callable[[], Any],
+                       shardings: Any = None):
         """(state, start step) from the latest committed checkpoint, or
         (a fresh state, 0). A fresh state from `init_state_fn` is the
-        template the checkpoint restores into (structure and devices)."""
+        template the checkpoint restores into (structure and devices);
+        `shardings` places the restored leaves on a mesh."""
         fresh = init_state_fn()
-        step, state = self.ckpt.restore_latest(fresh)
+        step, state = self.ckpt.restore_latest(fresh, shardings)
         if state is None:
             log.info("no checkpoint found; initializing fresh state")
             return fresh, 0

@@ -1,0 +1,553 @@
+"""Logical-axis sharding rules: how params, optimizer state, caches and
+activations map onto a `DeviceMesh` (the port of
+`repro/distributed/sharding.py`).
+
+Mesh axes: ("data", "model") single pod, ("pod", "data", "model") multi-pod.
+
+Param dims are tagged with logical tokens:
+    "tp"   -> model axis           (TP: heads / mlp / vocab dims)
+    "fsdp" -> data axes if FSDP, else None (ZeRO-3 storage sharding)
+    "ep"   -> model axis           (expert dim of MoE weight stacks)
+    None   -> replicated
+
+Activation constraint points use logical names resolved through the active
+`ShardingRules` (a context variable the step builders set):
+    act_batch  -> (pod?, data)     act_heads -> model
+    act_seq    -> model if seq_shard (sequence parallelism) else None
+    act_mlp    -> model            act_experts -> model
+    act_vocab  -> model            act_kv_seq -> data for long-context decode
+
+A partition spec is the port's own `PartitionSpec`: a tuple with one entry
+a tensor dim, each None, an axis name or a tuple of names, normalized as
+JAX's is (a one-name tuple is the name), so ``tuple(spec)`` equals the
+reference's. On the torch side a spec becomes DTensor placements
+(`placements`): `Shard(d)` on every mesh dim that dim `d`'s entry names,
+`Replicate()` on the others; ("pod", "data") shards one dim over both mesh
+dims, pod-major, as JAX lays it out.
+
+The mesh travels with the tensors: a DTensor carries its `device_mesh`,
+which `constrain` reads, so `ShardingRules` keeps exactly the
+reference's fields and no second context variable is needed.
+`constrain()` returns its argument itself without rules, so model code
+runs unchanged on one device; with rules it redistributes a DTensor
+activation to the spec's placements (the reference's
+`with_sharding_constraint`). An activation dim the mesh does
+not divide stays replicated there: DTensor would shard it unevenly, JAX
+pads it, and either way the values are the same.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import re
+from typing import Any
+
+import torch
+
+# ---------------------------------------------------------------------------
+# partition specs
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """The port's `jax.sharding.PartitionSpec`: ``PartitionSpec(*entries)``,
+    one entry a tensor dim (None, an axis name, or a tuple of names; a
+    one-name tuple is stored as the name)."""
+
+    def __new__(cls, *entries):
+        norm = []
+        for e in entries:
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                e = e[0] if len(e) == 1 else (e or None)
+            norm.append(e)
+        return super().__new__(cls, norm)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def _axes(entry) -> tuple:
+    """The mesh axis names one spec entry shards over."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    data_axes: tuple = ("data",)  # ("pod","data") in multi-pod
+    model_axis: str = "model"
+    fsdp: bool = False
+    seq_shard: bool = False
+    kv_seq_data: bool = False  # long-context decode: KV seq over data
+    batch_data: bool = True  # decode "2d" mode may replicate batch
+    # False when rep_kv_heads doesn't divide the model axis: attention
+    # activations replicate over `model` and the KV cache seq-shards over
+    # `model` instead; attention WEIGHTS stay channel-sharded either way.
+    shard_heads: bool = True
+    # shard expert weights' FF dim (not d_model) over the data axes
+    moe_ff_fsdp: bool = False
+
+    def param_axis(self, token: str | None):
+        if token == "tp" or token == "ep":
+            return self.model_axis
+        if token == "fsdp":
+            return self.data_axes if self.fsdp else None
+        return None
+
+    def param_spec(self, tokens: tuple) -> PartitionSpec:
+        return P(*[self.param_axis(t) for t in tokens])
+
+    def act_axis(self, name: str | None):
+        if name is None:
+            return None
+        return {
+            "act_batch": self.data_axes if self.batch_data else None,
+            "act_seq": self.model_axis if self.seq_shard else None,
+            "act_kv_seq": self.data_axes if self.kv_seq_data else None,
+            "act_heads": self.model_axis if self.shard_heads else None,
+            "act_mlp": self.model_axis,
+            "act_experts": self.model_axis,
+            "act_vocab": self.model_axis,
+            "act_embed": None,
+        }[name]
+
+    def act_spec(self, names: tuple) -> PartitionSpec:
+        return P(*[self.act_axis(n) for n in names])
+
+
+_ACTIVE_RULES: contextvars.ContextVar[ShardingRules | None] = (
+    contextvars.ContextVar("repro_torch_sharding_rules", default=None))
+
+
+@contextlib.contextmanager
+def use_rules(rules: ShardingRules | None):
+    token = _ACTIVE_RULES.set(rules)
+    try:
+        yield
+    finally:
+        _ACTIVE_RULES.reset(token)
+
+
+def active_rules() -> ShardingRules | None:
+    return _ACTIVE_RULES.get()
+
+
+def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
+    """The reference's `with_sharding_constraint` by logical names: `x`
+    itself without rules (or when `x` is not a DTensor), else `x`
+    redistributed to the names' placements on its mesh."""
+    rules = _ACTIVE_RULES.get()
+    if rules is None or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    spec = rules.act_spec(names)
+    place = placements(spec, mesh, shape=tuple(x.shape), strict=False)
+    if tuple(place) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, place)
+
+
+# ---------------------------------------------------------------------------
+# specs -> DTensor placements
+# ---------------------------------------------------------------------------
+# a mesh dim standing for several axes, pod-major: the compute mesh's
+# flattened ("pod", "data") dim
+FLAT_AXES = {"pod_data": ("pod", "data")}
+
+
+def compute_mesh(mesh):
+    """The mesh the DTensors live on: `mesh` itself, or for a ("pod",
+    "data", "model") mesh the 2-D (pod_data, model) mesh whose first dim
+    is ("pod", "data") flattened pod-major. Every rule names the two axes
+    together, so each tensor's blocks are the same; DTensor then reduces
+    over both in one collective, and propagates its shardings over two
+    mesh dims instead of three (on three the propagation took minutes of
+    CPU a step)."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return mesh
+    flat = getattr(mesh, "_repro_compute_mesh", None)
+    if flat is None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = mesh.mesh  # (pod, data, model) rank ids
+        flat = DeviceMesh(mesh.device_type,
+                          ranks.reshape(-1, ranks.shape[-1]),
+                          mesh_dim_names=("pod_data", "model"))
+        mesh._repro_compute_mesh = flat  # made once: it makes new groups
+    return flat
+
+
+def _mesh_groups(mesh) -> list:
+    """Per mesh dim, the tuple of axis names it stands for."""
+    return [FLAT_AXES.get(n, (n,)) for n in mesh.mesh_dim_names]
+
+
+def placements(spec, mesh, *, shape: tuple | None = None,
+               strict: bool = True, what: str = "") -> tuple:
+    """DTensor placements of `spec` on `mesh`: `Shard(d)` on each mesh dim
+    that dim `d`'s entry names (several names in the mesh's order, so
+    ("pod", "data") is pod-major), `Replicate()` on the rest and on every
+    mesh dim of one rank (the same layout; DTensor's view rules refuse
+    to merge a dim sharded even one way).
+
+    With `shape`, a dim the named mesh dims do not divide raises where
+    `strict` (the state and batch placements: JAX's shardings refuse it
+    too; `what` names the leaf), and stays replicated otherwise (an
+    activation constraint)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    groups = _mesh_groups(mesh)
+    out = [Replicate()] * len(groups)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        idx = [i for i, g in enumerate(groups) if set(g) <= set(axes)]
+        if tuple(a for i in idx for a in groups[i]) != axes:
+            raise ValueError(
+                f"{what or 'spec'} {tuple(spec)}: axes {axes} are not whole "
+                f"mesh dims in the mesh's order {tuple(groups)}")
+        if shape is not None:
+            n = 1
+            for i in idx:
+                n *= mesh.shape[i]
+            if shape[d] % n:
+                if strict:
+                    raise ValueError(
+                        f"{what or 'tensor'}: dim {d} of {tuple(shape)} is "
+                        f"not divisible by mesh axes {axes} ({n} ranks)")
+                continue
+        for i in idx:
+            if mesh.shape[i] > 1:  # a one-rank mesh dim shards nothing
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def _local_chunk(t: torch.Tensor, place: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor `t` under `place`: each mesh
+    dim in order cuts its tensor dim into equal parts and keeps the part
+    at this rank's coordinate."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            t = t.chunk(mesh.shape[i], dim=p.dim)[coord[i]]
+    return t
+
+
+def place_whole(t: torch.Tensor, mesh, place: tuple):
+    """`t` (the same whole tensor on every rank) as a DTensor on `place`:
+    this rank keeps its block, no collective runs. A block smaller than
+    `t` is a copy, so the whole tensor can go; the whole of `t` is kept
+    as it is (a one-rank mesh shares its storage)."""
+    from torch.distributed.tensor import DTensor
+
+    local = _local_chunk(t, place, mesh)
+    if local.numel() != t.numel():
+        local = local.contiguous().clone()
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute(t: torch.Tensor, spec, mesh, what: str = ""):
+    """`place_whole` under `spec`'s placements; a dim the spec's axes do
+    not divide raises, naming `what`."""
+    return place_whole(t, mesh, placements(spec, mesh, shape=tuple(t.shape),
+                                           what=what))
+
+
+def shard_tree(tree, specs, mesh, what: str = ""):
+    """Every tensor leaf of `tree` distributed under the spec at the same
+    place in `specs` (`distribute`); None stays None."""
+    return map_tree(lambda path, leaf, spec: distribute(
+        leaf, spec, mesh, what=f"{what}{path}"), tree, specs)
+
+
+def tree_placements(specs, mesh):
+    """A spec tree as a tree of placements tuples."""
+    return map_tree(lambda _, s: placements(s, mesh), specs)
+
+
+class NamedSharding:
+    """Where a whole tensor goes: a mesh and a `PartitionSpec` (JAX's
+    `NamedSharding`); a leaf of the `shardings` trees a checkpoint
+    restores onto."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+
+    def place(self, t: torch.Tensor, what: str = ""):
+        return distribute(t, self.spec, self.mesh, what=what)
+
+
+def named_shardings(specs, mesh):
+    """A spec tree as a tree of `NamedSharding`s on `mesh`."""
+    return map_tree(lambda _, s: NamedSharding(mesh, s), specs)
+
+
+def map_tree(fn, tree, *others, path: tuple = ()):
+    """`fn(path, leaf, *other_leaves)` over the leaves of `tree` (tensors,
+    `PartitionSpec`s and `NamedSharding`s) through dicts, lists, tuples,
+    NamedTuples and dataclasses; `others` follow its structure down to
+    its leaves (None for no tree). None stays None; a path is the keys
+    "/"-joined (`_path_str`)."""
+    if tree is None:
+        return None
+    if isinstance(tree, (torch.Tensor, PartitionSpec, NamedSharding)):
+        return fn(_path_str(path), tree, *others)
+
+    def kids(get):
+        return [None if o is None else get(o) for o in others]
+
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *kids(lambda o: o[k]), path=path + (k,))
+                for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: map_tree(
+            fn, getattr(tree, f.name),
+            *kids(lambda o: getattr(o, f.name)), path=path + (f.name,))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree(fn, v, *kids(lambda o: getattr(o, f)),
+                                     path=path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *kids(lambda o: o[i]),
+                                   path=path + (i,))
+                          for i, v in enumerate(tree))
+    raise TypeError(f"{_path_str(path)}: not a tree node: {type(tree)}")
+
+
+def tree_items(tree) -> list:
+    """[(path, leaf)] of `tree`'s leaves, in `map_tree`'s order."""
+    out = []
+    map_tree(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def _path_str(path) -> str:
+    """A tree path (dict keys and sequence indices) "/"-joined."""
+    return "/".join(str(p) for p in path)
+
+
+# ---------------------------------------------------------------------------
+# param path -> logical tokens (regex on "/"-joined tree path)
+# ---------------------------------------------------------------------------
+PARAM_PATTERNS: list[tuple[str, tuple]] = [
+    # embeddings / heads: vocab over model, embed over fsdp
+    (r"embed(/codebooks)?$", ("tp", "fsdp")),
+    (r"lm_head(/\d+)?$", ("fsdp", "tp")),
+    # attention
+    (r"attn/wq/w$", ("fsdp", "tp")),
+    (r"attn/wk/w$", ("fsdp", "tp")),
+    (r"attn/wv/w$", ("fsdp", "tp")),
+    (r"attn/wo/w$", ("tp", "fsdp")),
+    (r"attn/w[qkv]/b$", ("tp",)),
+    (r"attn/wo/b$", (None,)),
+    (r"attn/(q|k)_norm$", (None,)),
+    # dense mlp
+    (r"mlp/w(i|g)/w$", ("fsdp", "tp")),
+    (r"mlp/wo/w$", ("tp", "fsdp")),
+    (r"mlp/w./b$", (None,)),
+    # moe: expert-stacked weights -> EP over model, inner dims over fsdp
+    (r"moe/w(i|g)$", ("ep", "fsdp", None)),
+    (r"moe/wo$", ("ep", None, "fsdp")),
+    (r"moe/router$", (None, None)),
+    (r"moe/shared/w(i|g)/w$", ("fsdp", "tp")),
+    (r"moe/shared/wo/w$", ("tp", "fsdp")),
+    # mamba2
+    (r"ssm/in_proj$", ("fsdp", "tp")),
+    (r"ssm/out_proj$", ("tp", "fsdp")),
+    (r"ssm/conv_w$", (None, "tp")),
+    (r"ssm/conv_b$", ("tp",)),
+    (r"ssm/(A_log|D|dt_bias)$", (None,)),
+    (r"ssm/norm_w$", ("tp",)),
+    # norms / everything small
+    (r"(norm|norm1|norm2|final_norm)(/w)?$", (None,)),
+]
+
+
+def logical_tokens_for(path_str: str, ndim: int) -> tuple:
+    for pattern, tokens in PARAM_PATTERNS:
+        if re.search(pattern, path_str):
+            if len(tokens) != ndim:
+                # rank mismatch (e.g. stacked-by-layer leading dim): pad left
+                return (None,) * (ndim - len(tokens)) + tuple(tokens)
+            return tokens
+    return (None,) * ndim
+
+
+_MOE_FF_SWAP = [
+    (re.compile(r"moe/w(i|g)$"), ("ep", None, "fsdp")),  # F over data
+    (re.compile(r"moe/wo$"), ("ep", "fsdp", None)),
+]
+
+
+def param_partition_specs(params: Any, rules: ShardingRules):
+    """Tree of PartitionSpec matching `params` (stacked layer dims -> None).
+    Leaves may be tensors of any device, `meta` included."""
+
+    def spec(ps, leaf):
+        tokens = logical_tokens_for(ps, leaf.ndim)
+        if rules.moe_ff_fsdp:
+            for pat, swapped in _MOE_FF_SWAP:
+                if pat.search(ps):
+                    tokens = ((None,) * (leaf.ndim - len(swapped))
+                              + tuple(swapped))
+                    break
+        return rules.param_spec(tokens)
+
+    return map_tree(spec, params)
+
+
+# ---------------------------------------------------------------------------
+# regions DTensor cannot shard: the model calls these, and each is the
+# plain op on a plain tensor. Where a rule is missing or wrong in the
+# card's torch (2.11), a helper says so; drop it with the rule's fix.
+# ---------------------------------------------------------------------------
+def is_dtensor(x) -> bool:
+    return hasattr(x, "device_mesh") and hasattr(x, "placements")
+
+
+def full(x):
+    """A DTensor's whole value as a plain tensor; anything else itself."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def layout(x):
+    """(mesh, placements) of a DTensor; None for anything else."""
+    return (x.device_mesh, tuple(x.placements)) if is_dtensor(x) else None
+
+
+def whole(fn, *xs, like=None):
+    """`fn(*xs)`; with `like` (a `layout`), `fn` runs on every rank over
+    the whole tensors (`full`) and its result is placed so. For a
+    function DTensor has no rule for, outside autograd (the embedding
+    gather's sorted segment sum: `aten.segment_reduce` and the in-place
+    `index_add_` into a plain tensor have none)."""
+    if like is None:
+        return fn(*xs)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, place = like
+    out = DTensor.from_local(fn(*(full(x) for x in xs)), mesh,
+                             [Replicate()] * mesh.ndim, run_check=False)
+    return out if tuple(place) == tuple(out.placements) else \
+        out.redistribute(mesh, place)
+
+
+def on_blocks(fn, x, dim: int):
+    """`fn(x)` for an `fn` that works along `dim` and entry by entry
+    across the other dims (a cumsum). A DTensor runs it on each rank's
+    block with `dim` gathered whole first; autograd goes through
+    `to_local` / `from_local`, so `fn`'s backward runs on plain tensors
+    too (torch 2.11 has no DTensor rule for `flip`, the cumsum's
+    backward)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+
+    x = replicate_dim(x, dim)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh,
+                              x.placements, run_check=False)
+
+
+def write_slice(buf: torch.Tensor, dim: int, start: int,
+                val: torch.Tensor) -> None:
+    """``buf[..., start:start + n, ...] = val`` along `dim`, in place (n =
+    val.shape[dim]). A DTensor `buf` (a decode's KV cache) is written rank
+    by rank: `val` goes to `buf`'s placements with `dim` whole, and each
+    rank writes the rows that fall in its own block of `dim`."""
+    n = val.shape[dim]
+    if not is_dtensor(buf):
+        buf.narrow(dim, start, n).copy_(val)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    place = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                  else p for p in buf.placements)
+    val = (place_whole(val, mesh, place) if not is_dtensor(val)
+           else val if tuple(val.placements) == place
+           else val.redistribute(mesh, place))
+    lo, size = 0, buf.shape[dim]  # this rank's block of `dim`
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.shape[i]
+            lo += coord[i] * size
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        buf.to_local().narrow(dim, a - lo, b - a).copy_(
+            val.to_local().narrow(dim, a - start, b - a))
+
+
+def pad_zeros(x: torch.Tensor, dim: int, before: int = 0,
+              after: int = 0) -> torch.Tensor:
+    """`x` with `before` and `after` zero rows along `dim` (`F.pad`). A
+    DTensor's pad is a `torch.cat` (the same values): torch 2.11's
+    `constant_pad_nd` rule gives a mesh of two dims a one-dim
+    placement."""
+    dim %= x.dim()
+    if not is_dtensor(x):
+        widths = [0, 0] * (x.dim() - 1 - dim) + [before, after]
+        return torch.nn.functional.pad(x, widths)
+    parts = []
+    for n in (before, after):
+        shape = list(x.shape)
+        shape[dim] = n
+        parts.append(torch.zeros(shape, dtype=x.dtype, device=x.device)
+                     if n else None)
+    return torch.cat([t for t in (parts[0], x, parts[1]) if t is not None],
+                     dim=dim)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``. A DTensor `x` of one token a row (B, 1, D) runs as the
+    2-D product that `matmul` folds a plain one into: its local view may
+    keep a stride on the size-1 axis that stops the fold, and the batched
+    product run instead rounds differently."""
+    if is_dtensor(x) and x.dim() == 3 and x.shape[1] == 1:
+        return (x[:, 0] @ w)[:, None]
+    return x @ w
+
+
+def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x` itself unless it is a DTensor sharded along `dim`; then `x`
+    with that dim gathered whole (its other placements kept)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return x
+    dim %= x.ndim
+    place = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+                  else p for p in x.placements)
+    return x if place == tuple(x.placements) else x.redistribute(
+        x.device_mesh, place)
+
+
+def split_ready(x: torch.Tensor, dim: int, pieces: int) -> torch.Tensor:
+    """`x` ready to have dim `dim` split into (`pieces`, rest): itself,
+    unless a DTensor whose `dim` is sharded over more ranks than divide
+    `pieces` (DTensor cannot view such a split); then that dim is
+    gathered whole first, as GSPMD reshards before such a reshape."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x):
+        return x
+    dim %= x.ndim
+    n = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= x.device_mesh.shape[i]
+    return x if pieces % n == 0 else replicate_dim(x, dim)

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
+from repro_torch.distributed.sharding import replicate_dim
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
@@ -95,8 +96,8 @@ def init_train_state(cfg: ModelConfig, pcfg: ParallelConfig,
     """Fresh LM training state on `device` (default `cuda`): parameters
     drawn from `generator` (which must live there), zero AdamW moments in
     `pcfg.opt_state_dtype`, step 0, and a zero float32 error buffer iff
-    `pcfg.grad_compression`."""
-    device = resolve_device(device)
+    `pcfg.grad_compression`. On `meta` (generator None): shapes only."""
+    device = resolve_device(device, allow_meta=True)
     params = tf.init_params(cfg, generator, device)
     return TrainState(
         params=params,
@@ -106,20 +107,24 @@ def init_train_state(cfg: ModelConfig, pcfg: ParallelConfig,
         else None)
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp(logits) - logits[label] over the last axis, float32.
+    A vocab-sharded DTensor's rows are gathered whole first: DTensor's
+    masked gather along a sharded dim fails in its reduction."""
+    logits = replicate_dim(logits.float(), -1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
     """Mean token NLL, float32. logits (..., V), labels (...)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    return _token_nll(logits, labels).mean()
 
 
 def _chunk_nll(params, cfg, hc, lc):
-    logits = tf.unembed(params, cfg, hc).float()  # (B, c, V)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc[..., None].long())[..., 0]
-    return (lse - gold).sum()
+    return _token_nll(tf.unembed(params, cfg, hc), lc).sum()
 
 
 def chunked_cross_entropy(params, cfg: ModelConfig, hidden: torch.Tensor,
@@ -161,7 +166,8 @@ def lm_loss(params, cfg: ModelConfig, pcfg: ParallelConfig,
 
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                     shape: ShapeConfig, *, base_lr: float = 3e-4,
-                    warmup: int = 100, total_steps: int = 10_000
+                    warmup: int = 100, total_steps: int = 10_000,
+                    grad_shardings: Any = None
                     ) -> Callable[[TrainState, dict],
                                   tuple[TrainState, dict]]:
     """``train_step(state, batch) -> (state', metrics)``. Batch leaves
@@ -177,12 +183,23 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
     `cosine_schedule(base_lr, warmup, total_steps)` of the step before its
     increment. Metrics: ``loss`` (the microbatches' mean), ``grad_norm``
     (before clipping) and ``lr``, 0-d tensors. `state` is not changed.
-    The reference's `grad_shardings` (a sharding constraint of its FSDP
-    plan) is left out: one device has nothing to constrain.
+
+    `grad_shardings`, a tree of DTensor placements like the params (the
+    step builders' `launch/steps.py`), redistributes each microbatch's
+    gradients to the parameters' placements before they are summed: a
+    reduce-scatter into the FSDP accumulator instead of a full
+    all-reduce, as the reference's sharding constraint gives.
     """
     lr_fn = adamw.cosine_schedule(base_lr, warmup, total_steps)
     accum = pcfg.accum_for(shape.name)
     grad_fn = value_and_grad(lambda p, mb: lm_loss(p, cfg, pcfg, mb)[0])
+
+    def constrain_grads(grads):
+        if grad_shardings is None:
+            return grads
+        return tree_map(lambda g, place: g if tuple(g.placements) == place
+                        else g.redistribute(g.device_mesh, place),
+                        grads, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
@@ -191,6 +208,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig,
         for i in range(accum):
             mb_loss, mb_grads = grad_fn(params,
                                         {k: v[i] for k, v in batch.items()})
+            mb_grads = constrain_grads(mb_grads)
             if grads is None:
                 grads = tree_map(lambda g: g.float(), mb_grads)
                 loss = mb_loss

@@ -18,10 +18,15 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantization import quantize_rowwise
+from repro_torch.distributed.sharding import (
+    constrain,
+    pad_zeros,
+    split_ready,
+    write_slice,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     apply_rope,
@@ -66,9 +71,12 @@ def init_attention(gen, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
 def _project_qkv(p, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = linear(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = linear(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_ready(linear(p["wq"], x), -1, cfg.n_heads).reshape(
+        B, S, cfg.n_heads, hd)
+    k = split_ready(linear(p["wk"], x), -1, cfg.n_kv_heads).reshape(
+        B, S, cfg.n_kv_heads, hd)
+    v = split_ready(linear(p["wv"], x), -1, cfg.n_kv_heads).reshape(
+        B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -76,8 +84,16 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     q = apply_rope(q, ang, cfg.rope_fraction)
     k = apply_rope(k, ang, cfg.rope_fraction)
     if cfg.kv_repeat > 1:
+        if cfg.opt_kv_layout:
+            # the sequence-parallel boundary before the repeat
+            k = constrain(k, ("act_batch", None, None, None))
+            v = constrain(v, ("act_batch", None, None, None))
         k = k.repeat_interleave(cfg.kv_repeat, dim=2)
         v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+    # heads over model (seq unsharded here)
+    q = constrain(q, ("act_batch", None, "act_heads", None))
+    k = constrain(k, ("act_batch", None, "act_heads", None))
+    v = constrain(v, ("act_batch", None, "act_heads", None))
     return q, k, v
 
 
@@ -230,19 +246,17 @@ def attention(
                              f"length {S_max}")
         kc = k.movedim(1, 2)  # (B, rep_kv, S, hd)
         vc = v.movedim(1, 2)
-        rows = slice(idx, idx + S)
         if cache.k_scale is not None:
             kq, ks = _quantize_kv(kc)
             vq, vs = _quantize_kv(vc)
-            cache.k[:, :, rows] = kq
-            cache.v[:, :, rows] = vq
-            cache.k_scale[:, :, rows] = ks
-            cache.v_scale[:, :, rows] = vs
+            for buf, val in ((cache.k, kq), (cache.v, vq),
+                             (cache.k_scale, ks), (cache.v_scale, vs)):
+                write_slice(buf, 2, idx, val)
             k_full = _dequantize_kv(cache.k, cache.k_scale, x.dtype)
             v_full = _dequantize_kv(cache.v, cache.v_scale, x.dtype)
         else:
-            cache.k[:, :, rows] = kc.to(cache.k.dtype)
-            cache.v[:, :, rows] = vc.to(cache.v.dtype)
+            write_slice(cache.k, 2, idx, kc.to(cache.k.dtype))
+            write_slice(cache.v, 2, idx, vc.to(cache.v.dtype))
             k_full, v_full = cache.k, cache.v
         new_cache = cache
         q5 = q.movedim(1, 2).reshape(B, rep_kv, G, S, hd)
@@ -272,8 +286,8 @@ def attention(
             raise ValueError(f"attn_impl {attn_impl!r}: blocked or flash")
         if make_cache:
             pad = (cache_len or S) - S
-            kc = F.pad(kT, (0, 0, 0, pad))
-            vc = F.pad(vT, (0, 0, 0, pad))
+            kc = pad_zeros(kT, 2, after=pad)
+            vc = pad_zeros(vT, 2, after=pad)
             if cache_dtype == "int8":
                 kq, ks = _quantize_kv(kc)
                 vq, vs = _quantize_kv(vc)

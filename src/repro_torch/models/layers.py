@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, layout, matmul, whole
 
 _DRAW_ELEMS = 1 << 26  # float32 draws per slab (256 MB)
 
@@ -23,8 +24,11 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def normal(gen: torch.Generator, shape: tuple, scale: float, dtype,
            device) -> torch.Tensor:
-    """`scale * N(0, 1)` of `shape` in `dtype`, drawn in float32 slabs."""
+    """`scale * N(0, 1)` of `shape` in `dtype`, drawn in float32 slabs
+    (on `meta`, the shape alone: nothing is drawn)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     flat = out.view(-1, shape[-1])
     rows = max(1, _DRAW_ELEMS // max(shape[-1], 1))
     for lo in range(0, flat.shape[0], rows):
@@ -52,19 +56,27 @@ class _GatherRows(torch.autograd.Function):
         table, ids = inputs
         ctx.save_for_backward(ids)
         ctx.n_rows = table.shape[0]
+        ctx.layout = layout(table)
 
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
-        flat = ids.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        rows = grad.reshape(flat.numel(), -1)[order]
-        lengths = torch.zeros(ctx.n_rows, dtype=torch.long,
-                              device=flat.device).index_add_(
-            0, flat, torch.ones_like(flat))
-        sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
-                                    unsafe=True)
-        return sums.reshape((ctx.n_rows,) + grad.shape[ids.dim():]), None
+        return whole(lambda g, i: _sorted_segment_sum(g, i, ctx.n_rows),
+                     grad, ids, like=ctx.layout), None
+
+
+def _sorted_segment_sum(grad, ids, n_rows: int) -> torch.Tensor:
+    """(n_rows, ...) sums of `grad`'s rows by id: stably sorted, a segment
+    at a time."""
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = grad.reshape(flat.numel(), -1)[order]
+    lengths = torch.zeros(n_rows, dtype=torch.long,
+                          device=flat.device).index_add_(
+        0, flat, torch.ones_like(flat))
+    sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+    return sums.reshape((n_rows,) + grad.shape[ids.dim():])
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -101,7 +113,7 @@ def init_linear(gen, din: int, dout: int, dtype, device, bias: bool = False,
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -181,4 +193,5 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu(linear(p["wg"], x)) * h
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    h = constrain(h, ("act_batch", None, "act_mlp"))
     return linear(p["wo"], h)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import init_mlp, mlp, normal, param_dtype
 
 MOE_GROUP_SIZE = 1024  # tokens per dispatch group
@@ -105,7 +106,9 @@ def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     r = route(p["router"], xg, cfg, cap)
 
     bf16 = torch.bfloat16
-    expert_in = torch.einsum("gsec,gsd->egcd", r.dispatch, xg.to(bf16))
+    dispatch = constrain(r.dispatch, ("act_batch", None, "act_experts", None))
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg.to(bf16))
+    expert_in = constrain(expert_in, ("act_experts", "act_batch", None, None))
     h = torch.einsum("egcd,edf->egcf", expert_in, p["wi"].to(bf16))
     if cfg.act == "swiglu":
         g = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(bf16))
@@ -113,6 +116,7 @@ def moe_layer(p: dict, x: torch.Tensor, cfg: ModelConfig):
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     out_e = torch.einsum("egcf,efd->egcd", h, p["wo"].to(bf16))
+    out_e = constrain(out_e, ("act_experts", "act_batch", None, None))
 
     y = torch.einsum("egcd,gsec->gsd", out_e.float(), r.combine)
     y = y.reshape(B, S, D).to(x.dtype)

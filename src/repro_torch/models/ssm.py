@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, on_blocks, pad_zeros
 from repro_torch.models.layers import normal, param_dtype, rms_norm
 
 
@@ -53,7 +54,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv: x (B, S, C), w (K, C) -> (B, S, C), the K
     shifted views summed in the reference's order."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = pad_zeros(x, 1, before=K - 1)
     out = 0
     for i in range(K):
         out = out + xp[:, i:i + S, :] * w[i]
@@ -64,7 +65,7 @@ def _segsum(z: torch.Tensor) -> torch.Tensor:
     """z (..., Q) -> (..., Q, Q): out[i, j] = sum_{j < s <= i} z[s], -inf
     above the diagonal (the SSD 1-semiseparable decay matrix)."""
     Q = z.shape[-1]
-    cs = torch.cumsum(z, dim=-1)
+    cs = on_blocks(lambda t: torch.cumsum(t, dim=-1), z, -1)
     seg = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones((Q, Q), dtype=torch.bool, device=z.device).tril()
     return seg.masked_fill(~mask, float("-inf"))
@@ -79,10 +80,8 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     hpg = H // G
     pad = (-L) % chunk
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
-        C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
+        x, dt, B_, C_ = (pad_zeros(t, 1, after=pad)
+                         for t in (x, dt, B_, C_))
     nc = (L + pad) // chunk
 
     xf = x.float().reshape(Bsz, nc, chunk, H, P)
@@ -93,7 +92,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
         Bsz, nc, chunk, H, N)
 
     dA_t = (dtf * A).movedim(-1, -2)  # (B, nc, H, Q)
-    dA_cs = torch.cumsum(dA_t, dim=-1)
+    dA_cs = on_blocks(lambda t: torch.cumsum(t, dim=-1), dA_t, -1)
     xdt = xf * dtf[..., None]  # (B, nc, Q, H, P)
 
     # intra-chunk (quadratic within a chunk)
@@ -146,13 +145,14 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"])
         # the carry for a later decode: the last K-1 raw xBC inputs
         tail = (xBC[:, -(K - 1):] if S >= K - 1
-                else F.pad(xBC, (0, 0, K - 1 - S, 0)))
+                else pad_zeros(xBC, 1, before=K - 1 - S))
         new_conv = tail.float()
     xBC = F.silu(conv_out)
     xc, B_, C_ = torch.split(xBC, [di, g * n, g * n], dim=-1)
     xh = xc.reshape(B, S, h, P)
     B_ = B_.reshape(B, S, g, n)
     C_ = C_.reshape(B, S, g, n)
+    xh = constrain(xh, ("act_batch", None, "act_heads", None))
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (H,)

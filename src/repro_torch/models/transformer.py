@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import (
@@ -88,10 +89,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random weights in the reference's layout and scales, drawn from
     `generator`, which must live on `device` (default `cuda`). Stacked
-    weights are drawn a slab at a time, never as a float32 whole."""
+    weights are drawn a slab at a time, never as a float32 whole. On
+    `meta` (generator None) the tree has every leaf's shape and dtype and
+    no storage: the counterpart of `jax.eval_shape(init_params)`."""
     _check_family(cfg)
-    device = resolve_device(device)
-    if generator.device.type != device.type:
+    device = resolve_device(device, allow_meta=True)
+    if device.type != "meta" and generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}")
     dt = param_dtype(cfg)
@@ -135,6 +138,7 @@ def _attn_mlp_block(p, x, cfg, positions, *, cache=None, cache_index=None,
                     make_cache=False, cache_len=None, cache_dtype="bfloat16",
                     attn_impl="blocked", use_moe=False):
     """Returns (x, aux loss or None without experts, new cache)."""
+    x = constrain(x, ("act_batch", "act_seq", None))
     h, new_cache = attention(
         p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, positions,
         cache=cache, cache_index=cache_index, make_cache=make_cache,
@@ -143,17 +147,19 @@ def _attn_mlp_block(p, x, cfg, positions, *, cache=None, cache_index=None,
     if use_moe:
         y, aux = moe_layer(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps),
                            cfg)
-        return x + y, aux, new_cache
+        return constrain(x + y, ("act_batch", "act_seq", None)), aux, \
+            new_cache
     # `h` lives until the block returns: freeing it earlier fragments the
     # caching allocator enough to run full-width training out of memory
     # (`chip_smoke.py` phase I peaks at 78.7 of the card's 85 GB)
     x = x + mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
-    return x, None, new_cache
+    return constrain(x, ("act_batch", "act_seq", None)), None, new_cache
 
 
 def _mamba_block(p, x, cfg, state=None):
     """Returns (x, (conv_state, ssm_state)); decode iff `state` is given."""
     conv_s, ssm_s = (None, None) if state is None else state
+    x = constrain(x, ("act_batch", "act_seq", None))
     h, states = ssm_mod.mamba2_block(
         p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
         conv_state=conv_s, ssm_state=ssm_s, decode=state is not None)
@@ -227,7 +233,7 @@ def unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
     else:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = h @ w
+        logits = constrain(h @ w, ("act_batch", None, "act_vocab"))
     if cfg.padded_vocab != cfg.vocab_size:
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(ids >= cfg.vocab_size, -1e30)

@@ -76,8 +76,8 @@ def init_adamw_state(params: Any, state_dtype: str = "float32"
                      ) -> AdamWState:
     """Zero moments in `state_dtype` beside each parameter, count 0 (on
     the parameters' device)."""
-    def zero(p, sqrt_transform=False):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zero(p, sqrt_transform=False):  # a DTensor beside a DTensor
+        z = torch.zeros_like(p, dtype=torch.float32)
         return _encode(z, state_dtype, sqrt_transform)
 
     device = tree_leaves(params)[0].device
@@ -116,10 +116,45 @@ def adamw_update(
         new_p = (p.to(torch.float32) - lr * step).to(p.dtype)
         return new_p, _encode(m, state_dtype), _encode(v, state_dtype, True)
 
-    out = tree_map(upd, grads, state.mu, state.nu, params)
+    out = tree_map(lambda g, m, v, p: _by_slabs(upd, g, m, v, p),
+                   grads, state.mu, state.nu, params)
     new_params, new_mu, new_nu = (tree_map(lambda _, o: o[i], grads, out)
                                   for i in range(3))
     return new_params, AdamWState(mu=new_mu, nu=new_nu, count=count)
+
+
+_SLAB_ELEMS = 1 << 26  # elements a slab: 256 MB of each float32 temporary
+
+
+def _by_slabs(upd, g, m_s, v_s, p):
+    """`upd(g, m_s, v_s, p)` a slab of leading-dim rows at a time where `p`
+    is larger than `_SLAB_ELEMS` (and, for a DTensor, whole along dim 0),
+    the slabs' results concatenated: the same bits (the update is
+    elementwise, the int8 scales are a row's), with the float32
+    temporaries of one slab instead of the whole leaf (Qwen2-VL-72B's
+    embedding holds 1.25 B params: ~5 GB a temporary)."""
+    if p.dim() < 2 or p.numel() <= _SLAB_ELEMS or any(
+            getattr(pl, "dim", None) == 0
+            for pl in getattr(p, "placements", ())):
+        return upd(g, m_s, v_s, p)
+    rows = max(1, _SLAB_ELEMS * p.shape[0] // p.numel())
+
+    def split(t):
+        if isinstance(t, QuantState):
+            return [QuantState(values=a, scales=b) for a, b in
+                    zip(t.values.split(rows), t.scales.split(rows))]
+        return t.split(rows)
+
+    outs = [upd(*parts) for parts in zip(*(split(t) for t in
+                                           (g, m_s, v_s, p)))]
+
+    def cat(items):
+        if isinstance(items[0], QuantState):
+            return QuantState(values=torch.cat([q.values for q in items]),
+                              scales=torch.cat([q.scales for q in items]))
+        return torch.cat(items)
+
+    return tuple(cat([o[i] for o in outs]) for i in range(3))
 
 
 # ---------------------------------------------------------------------------

@@ -53,8 +53,8 @@ def _ssm_states(cfg: ModelConfig, lead: tuple, batch: int, device):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype: str = "bfloat16", device=None):
     """Empty cache tree matching `models.transformer.forward(mode=
-    "decode")`, on `device` (default `cuda`)."""
-    device = resolve_device(device)
+    "decode")`, on `device` (default `cuda`; `meta` for shapes alone)."""
+    device = resolve_device(device, allow_meta=True)
     L = cfg.n_layers
     if cfg.family in ("dense", "vlm", "audio") or (
             cfg.family == "moe" and cfg.moe_layer_step == 1):

@@ -14,7 +14,8 @@ def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, *, allow_meta: bool = False
+                   ) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks.
 
     No silent CPU fallback: asking for CUDA (explicitly, or by passing
@@ -22,6 +23,9 @@ def resolve_device(device=None) -> torch.device:
     float32 matmul precision to full float32 — TF32 off for both
     `torch.backends.cuda.matmul` and cuDNN — because the MLPs and the LSH
     projection are held against the float32 JAX reference.
+
+    `allow_meta` also accepts `meta`, for the shape-only trees of the
+    step builders (`launch/steps.py`): no storage, nothing computed.
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
@@ -31,7 +35,7 @@ def resolve_device(device=None) -> torch.device:
                 "is available; pass device='cpu' to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
+    elif device.type != "cpu" and not (allow_meta and device.type == "meta"):
         raise ValueError(f"repro_torch: unsupported device {device}")
     return device
 
