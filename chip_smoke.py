@@ -207,7 +207,22 @@
    L.2: qwen3-8b at 4 layers, phase D's batch and prompt: the built
    prefill and 4 built decodes give logits and int8 caches bit-equal to
    the unsharded `prefill` / `decode_step`.
-13. Phase C: each kernel against its plain version on the card at the
+13. Phase M: the dry run and its op counts (`launch/dryrun.py`,
+   `launch/hlo_analysis.py`). M.1: one more L.1a step runs under
+   `OpRecorder` (untimed): its counted flops beside phase I's model
+   flops, and over L.1a's median step time beside 989 TFLOP/s; its HBM
+   bytes (the fused model and the eager one) over 3.35 TB/s beside the
+   step time. M.2: the dry run in subprocesses (a `fake` group cannot
+   share a process with phase L's NCCL group), with no GPU visible to
+   them, all at once: the reduced cells of `tests/test_torch_dryrun.py`
+   (argument bytes must equal the reference's, read on the CPU; flops
+   beside the CPU's count and the reference's), L.1a's own cell on a
+   (1, 1) mesh (its peak, arguments plus temporaries, beside L.1a's
+   measured peak; its flops beside M.1's), and Qwen3-8B x train_4k and
+   x decode_32k at full width on the 256-rank (16, 16) mesh with 2
+   layers, through the CLI (`--model-override '{"n_layers": 2}'`).
+   Every cell must be `ok`.
+14. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
    dense catalog (262,143 rows), beside its bytes bound and the POPC floor
    of any CUDA-core design; the grouped pool at phase A's lookup-stage and
@@ -238,8 +253,9 @@
    distance product alone), and `F.embedding_bag` over the dequantized f32
    tables of the lookup stage.
 
-Runs A, B, E, F, G, H, D, I, J, K, L, C in that order. Prints one line
-per phase (phase E's, F's, I's, J's, K's and L's with the card's name
+Runs A, B, E, F, G, H, D, I, J, K, L, M, C in that order. Prints one
+line per phase (phase E's, F's, I's, J's, K's, L's and M's with the
+card's name
 and power limit), one line
 per kernel, the card's name and power limit as `nvidia-smi` gives them,
 a `kernels` JSON line, and last `{"ok": true, "device": {...}}`;
@@ -405,6 +421,53 @@ L_SEQ = 2048
 L_ACCUM = 2
 L_STEPS = 3
 L_DECODE_STEPS = 4
+# phase M: the dry run's cells, each in a subprocess: name -> (arch,
+# reduced, model overrides, parallel overrides, (shape name, kind,
+# seq_len, global batch), mesh). The reduced ones are
+# tests/test_torch_dryrun.py's, with their argument bytes (the
+# reference's `memory_analysis()`), flops as the port counts them on the
+# CPU's torch 2.13 and the reference's flops (`analyze_hlo`).
+M_TINY = ({"n_layers": 2}, {"grad_accum": {"tiny_train": 2},
+                            "logit_chunk": 16})
+M_TRAIN = ("tiny_train", "train", 64, 8)
+M_CELLS = {
+    "qwen-train": ("qwen2.5-3b", True, *M_TINY, M_TRAIN, (2, 4)),
+    "qwen-train-noremat": ("qwen2.5-3b", True, M_TINY[0],
+                           {**M_TINY[1], "remat": "none"}, M_TRAIN, (2, 4)),
+    "qwen-prefill": ("qwen2.5-3b", True, *M_TINY,
+                     ("tiny_prefill", "prefill", 64, 4), (2, 4)),
+    "qwen-decode": ("qwen2.5-3b", True, *M_TINY,
+                    ("tiny_decode", "decode", 64, 8), (2, 4)),
+    "mamba-train": ("mamba2-1.3b", True, *M_TINY, M_TRAIN, (2, 4)),
+    "qwen-train-1": ("qwen2.5-3b", True, *M_TINY, M_TRAIN, (1, 1)),
+    "L.1a": (LM_ARCH, False, {"n_layers": I_LAYERS},
+             {"grad_accum": {"card_train": L_ACCUM}},
+             ("card_train", "train", L_SEQ, LM_BATCH), (1, 1)),
+}
+M_CPU = {  # name -> (argument bytes, flops, the reference's flops)
+    "qwen-train": (252_424, 49_283_072, 48_234_496),
+    "qwen-train-noremat": (252_424, 39_845_888, 39_845_888),
+    "qwen-prefill": (83_968, 12_066_816, 5_775_360),
+    "qwen-decode": (116_244, 393_216, 196_608),
+    "mamba-train": (201_544, 59_768_832, 37_814_272),
+    "qwen-train-1": (994_056, 394_264_576, 385_875_968),
+}
+M_CLI = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"))
+M_CLI_LAYERS = 2
+M_TAG = "chip_smoke"
+M_JOIN_S = 300.0
+M_CELL = """
+import json, sys
+from repro_torch.configs.base import ArchBundle, ShapeConfig
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import dry_run
+arch, reduced, model, parallel, shape, mesh = json.loads(sys.argv[1])
+b = get_arch(arch)
+cfg = (reduce_config(b.model) if reduced else b.model).with_(**model)
+bundle = ArchBundle(cfg, b.parallel.with_(**parallel))
+print(json.dumps(dry_run(bundle, ShapeConfig(*shape), tuple(mesh))))
+"""
 WAIT_S = 120.0  # the longest wait for a ticket or the training thread
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2936,8 +2999,9 @@ def model_flops(cfg, params, tokens: int) -> int:
 
 
 def sharded_train_run(tag: str, arch: str, layers, seed: int, device, ops,
-                      mesh, attn_mod) -> dict:
-    """One model of L.1, freed on return."""
+                      mesh, attn_mod, record_ops: bool = False) -> dict:
+    """One model of L.1, freed on return; with `record_ops`, one more
+    step (untimed) under `OpRecorder` (phase M.1)."""
     from repro_torch.configs.base import ArchBundle, ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import training as tr
@@ -3008,6 +3072,16 @@ def sharded_train_run(tag: str, arch: str, layers, seed: int, device, ops,
     check(set(rec["launches"].values()) == {0},
           f"{tag}: a port kernel launched on the train path: "
           f"{rec['launches']}")
+    if record_ops:
+        from repro_torch.launch.hlo_analysis import OpRecorder, analyze_ops
+
+        dbatch = built.shard(1, batches[-1])
+        with OpRecorder() as recorder:
+            dstate, m = built.fn(dstate, dbatch)
+        torch.cuda.synchronize()
+        check(np.isfinite(float(m["loss"])), f"{tag} recorded step loss")
+        rec["op_counts"] = {"ops": len(recorder.records),
+                            **analyze_ops(recorder.records).as_dict()}
     med = statistics.median(ms[1:])
     peak = torch.cuda.max_memory_allocated()
     rec.update(losses=losses, grad_norms=norms, step_ms=ms, ms_per_step=med,
@@ -3110,7 +3184,7 @@ def sharded_phase(seed: int, device, ops, card: str) -> dict:
         mesh = make_mesh_of((1, 1), "cuda")
         for tag, arch, layers in L_MODELS:
             m = sharded_train_run(tag, arch, layers, seed, device, ops,
-                                  mesh, attn_mod)
+                                  mesh, attn_mod, record_ops=tag == "L.1a")
             gc.collect()
             torch.cuda.empty_cache()
             rec["models"].append(m)
@@ -3145,6 +3219,123 @@ def sharded_phase(seed: int, device, ops, card: str) -> dict:
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"phase L took {rec['seconds']:.1f} s; no port kernel launched; "
           f"{rec['bytes_before']} B held by earlier phases", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase M: the dry run and its op counts
+# ---------------------------------------------------------------------------
+def dryrun_cells() -> dict:
+    """M.2: every dry-run cell in a subprocess of its own, all at once,
+    with no GPU visible -> {name: (return code, last line or the
+    cell's JSON, stderr's end, the cell's result or None)}."""
+    from repro_torch.launch.dryrun import cell_path
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    cmds = {name: [sys.executable, "-c", M_CELL, json.dumps(spec)]
+            for name, spec in M_CELLS.items()}
+    paths = {}
+    for arch, shape in M_CLI:
+        name = f"{arch} x {shape}"
+        paths[name] = cell_path(arch, shape, "single", M_TAG)
+        cmds[name] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", shape, "--mesh", "single",
+                      "--model-override",
+                      json.dumps({"n_layers": M_CLI_LAYERS}),
+                      "--tag", M_TAG, "--force"]
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT)
+             for name, cmd in cmds.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=M_JOIN_S)
+            res = None
+            if p.returncode == 0 and name in paths:
+                res = json.loads(paths[name].read_text())
+            elif p.returncode == 0:
+                res = {"status": "ok",
+                       **json.loads(stdout.strip().splitlines()[-1])}
+            out[name] = (p.returncode, stdout[-2000:], stderr[-3000:], res)
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+    return out
+
+
+def dryrun_phase(sharded: dict, card: str) -> dict:
+    """Phase M: L.1a's step under `OpRecorder` (M.1) and the dry run's
+    cells (M.2)."""
+    t_phase = time.perf_counter()
+    l1a = next(m for m in sharded["models"] if m["tag"] == "L.1a")
+    oc, step_ms = l1a["op_counts"], l1a["ms_per_step"]
+    m1 = {"ops": oc["ops"], "flops": oc["flops"],
+          "model_flops": l1a["model_flops_per_step"],
+          "flops_over_model_flops": oc["flops"]
+          / l1a["model_flops_per_step"],
+          "step_ms": step_ms,
+          "tflop_per_s": oc["flops"] / step_ms / 1e9,
+          "of_bf16_peak": oc["flops"] / (step_ms / 1e3) / BF16_TC_FLOPS,
+          "hbm_bytes": oc["hbm_bytes"],
+          "hbm_ms": oc["hbm_bytes"] / HBM_BYTES_PER_S * 1e3,
+          "hbm_bytes_eager": oc["hbm_bytes_eager"],
+          "hbm_eager_ms": oc["hbm_bytes_eager"] / HBM_BYTES_PER_S * 1e3}
+    check(m1["flops"] > m1["model_flops"] and oc["collective_bytes"] == 0,
+          f"M.1: counted {m1['flops']} flops against {m1['model_flops']} "
+          f"model flops, {oc['collective_bytes']} collective bytes at world "
+          f"size 1")
+    print(f"phase M.1 (one more L.1a step under OpRecorder, {LM_ARCH} "
+          f"{I_LAYERS} layers; {card}): {m1['ops']} ops, counted "
+          f"{m1['flops']:.6g} flops = {m1['flops_over_model_flops']:.4f} x "
+          f"phase I's model flops {m1['model_flops']:.6g}; over L.1a's "
+          f"{step_ms:.1f} ms a step {m1['tflop_per_s']:.1f} TFLOP/s = "
+          f"{m1['of_bf16_peak']:.4f} of 989; HBM bytes {m1['hbm_bytes']:.6g}"
+          f" (fused model) / 3.35 TB/s = {m1['hbm_ms']:.1f} ms, "
+          f"{m1['hbm_bytes_eager']:.6g} (eager) = {m1['hbm_eager_ms']:.1f} "
+          f"ms, against the step's {step_ms:.1f} ms", flush=True)
+
+    cells = dryrun_cells()
+    bad = {n: (rc, err) for n, (rc, _, err, res) in cells.items()
+           if rc != 0 or res is None or res.get("status") != "ok"}
+    check(not bad, f"M.2 dry-run cells failed: {bad}")
+    m2 = {n: res for n, (_, _, _, res) in cells.items()}
+    for name, (arg_bytes, flops, ref_flops) in M_CPU.items():
+        res = m2[name]
+        check(res["memory"]["argument_bytes"] == arg_bytes,
+              f"M.2 {name}: argument bytes {res['memory']['argument_bytes']}"
+              f" != the reference's {arg_bytes}")
+        res["flops_equal_cpu"] = res["hlo"]["flops"] == flops
+        res["flops_over_reference"] = res["hlo"]["flops"] / ref_flops
+    dry = m2["L.1a"]
+    dry_peak = dry["memory"]["argument_bytes"] + dry["memory"]["temp_bytes"]
+    dry["peak_over_card_peak"] = dry_peak / l1a["peak_bytes"]
+    dry["flops_equal_m1"] = dry["hlo"]["flops"] == m1["flops"]
+    for name, res in m2.items():
+        mem, hlo = res["memory"], res["hlo"]
+        extra = ""
+        if name in M_CPU:
+            extra = (f", argument bytes == the reference's, flops == the "
+                     f"CPU's: {res['flops_equal_cpu']}, "
+                     f"{res['flops_over_reference']:.4f} x the reference's")
+        elif name == "L.1a":
+            extra = (f"; peak {dry_peak} B = {dry['peak_over_card_peak']:.4f}"
+                     f" x L.1a's measured {l1a['peak_bytes']} B, flops == "
+                     f"M.1's: {dry['flops_equal_m1']}")
+        print(f"phase M.2 {name} ({res['n_devices']} ranks, rank 0's "
+              f"counts): argument {mem['argument_bytes']} B, temp "
+              f"{mem['temp_bytes']} B, output {mem['output_bytes']} B, alias "
+              f"{mem['alias_bytes']} B; flops {hlo['flops']:.6g}, HBM "
+              f"{hlo['hbm_bytes']:.6g} B (eager {hlo['hbm_bytes_eager']:.6g})"
+              f", collectives {hlo['collective_bytes']:.6g} B "
+              f"{ {k: int(v) for k, v in hlo['per_collective'].items()} } in "
+              f"{hlo['collective_count']}; build + run "
+              f"{res['timings_s']['build'] + res['timings_s']['run']:.1f} s"
+              f"{extra}", flush=True)
+    rec = {"M1": m1, "M2": m2, "seconds": time.perf_counter() - t_phase}
+    print(f"phase M took {rec['seconds']:.1f} s ({len(m2)} dry-run cells "
+          f"in parallel, no GPU visible to them; {card})", flush=True)
     return rec
 
 
@@ -3719,6 +3910,9 @@ def main(argv=None) -> int:
     # -- phase L: the sharded LM plan, every family training -------------
     sharded = sharded_phase(args.seed, device, ops, card)
 
+    # -- phase M: the dry run and its op counts ----------------------------
+    dry = dryrun_phase(sharded, card)
+
     for name, prof in (("A", a["profile"]), ("B", b["profile"])):
         print(f"phase {name} profile, one serve step: {prof['kernels']} "
               f"kernels ({prof['launches']} of the port's), "
@@ -3867,7 +4061,8 @@ def main(argv=None) -> int:
     for phase in (a, b):
         phase.pop("results")
     record.update(phase_a=a, phase_b=b, phase_d=lm_rec, phase_i=lm_train,
-                  phase_j=fam, phase_k=fam_k, phase_l=sharded, phase_e=e,
+                  phase_j=fam, phase_k=fam_k, phase_l=sharded,
+                  phase_m=dry, phase_e=e,
                   phase_f=cat_f, phase_g=train, phase_h=mesh,
                   kernels=kernels,
                   device={"platform": "gpu",

@@ -512,14 +512,87 @@ def pad_zeros(x: torch.Tensor, dim: int, before: int = 0,
                      dim=dim)
 
 
+# torch 2.13's DTensor flattens a dim sharded after the first as a
+# strided shard; 2.11's view rule refuses to (`matmul`, `einsum`)
+FLATTENS_LATER_SHARDS = tuple(
+    int(v) for v in torch.__version__.split("+")[0].split(".")[:2]) >= (2, 13)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w``. A DTensor `x` of one token a row (B, 1, D) runs as the
     2-D product that `matmul` folds a plain one into: its local view may
     keep a stride on the size-1 axis that stops the fold, and the batched
-    product run instead rounds differently."""
-    if is_dtensor(x) and x.dim() == 3 and x.shape[1] == 1:
-        return (x[:, 0] @ w)[:, None]
-    return x @ w
+    product run instead rounds differently.
+
+    The product flattens `x`'s leading dims, and its backward the
+    gradient's. Where DTensor cannot flatten a dim sharded after the
+    first (`FLATTENS_LATER_SHARDS` false: torch 2.11), a DTensor `x` has
+    its leading dims after the first gathered first, and so has the
+    gradient that reaches the product's output (a hook: an op that took
+    the output on other placements hands its gradient back on those)."""
+    if not is_dtensor(x):
+        return x @ w
+    if not FLATTENS_LATER_SHARDS:
+        x = _lead_whole(x)
+    if x.dim() == 3 and x.shape[1] == 1:
+        y = (x[:, 0] @ w)[:, None]
+    else:
+        y = x @ w
+    if not FLATTENS_LATER_SHARDS and y.requires_grad and y.dim() > 2:
+        y.register_hook(_lead_whole)
+    return y
+
+
+def _lead_whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor `x` with its dims 1 .. ndim - 2 gathered whole."""
+    for d in range(1, x.dim() - 1):
+        x = replicate_dim(x, d)
+    return x
+
+
+def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *xs)``. The product flattens the batch dims
+    (dims in every operand and the output), which DTensor cannot do to a
+    dim sharded after the first where `FLATTENS_LATER_SHARDS` is false
+    (torch 2.11). There, DTensor operands sharded along batch dims only,
+    no mesh dim along two letters, run it on each rank's blocks, an
+    operand whole along a mesh dim that another shards cut to its block
+    (no collective). Anything else goes to DTensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if (FLATTENS_LATER_SHARDS or not all(is_dtensor(x) for x in xs)
+            or not any(isinstance(p, Shard) for x in xs
+                       for p in x.placements)):
+        return torch.einsum(eq, *xs)
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    batch = set(out).intersection(*map(set, ins))
+    mesh = xs[0].device_mesh
+    letters = []  # per mesh dim: the batch letter it shards, or None
+    for i in range(mesh.ndim):
+        here = set()
+        for spec, x in zip(ins, xs):
+            p = x.placements[i]
+            if isinstance(p, Shard):
+                here.add(spec[p.dim])
+            elif not isinstance(p, Replicate):
+                return torch.einsum(eq, *xs)  # a pending sum
+        if len(here) > 1 or not here <= batch:
+            return torch.einsum(eq, *xs)
+        letters.append(next(iter(here), None))
+    if any(x.device_mesh != mesh for x in xs):
+        return torch.einsum(eq, *xs)
+    locals_ = []
+    for spec, x in zip(ins, xs):
+        place = tuple(Replicate() if a is None else Shard(spec.index(a))
+                      for a in letters)
+        if tuple(x.placements) != place:
+            x = x.redistribute(mesh, place)
+        locals_.append(x.to_local())
+    return DTensor.from_local(
+        torch.einsum(eq, *locals_), mesh,
+        [Replicate() if a is None else Shard(out.index(a)) for a in letters],
+        run_check=False)
 
 
 def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantization import quantize_rowwise
 from repro_torch.distributed.sharding import (
     constrain,
+    einsum,
     pad_zeros,
     split_ready,
     write_slice,
@@ -118,7 +119,7 @@ def _blocked_forward(q5, k, v, causal: bool, q_offset: int, block_k: int):
     for lo in range(0, Sk, min(block_k, Sk)):
         kb = k[:, :, lo:lo + block_k].float()
         vb = v[:, :, lo:lo + block_k].float()
-        s = torch.einsum("brgqd,brkd->brgqk", qf, kb)
+        s = einsum("brgqd,brkd->brgqk", qf, kb)
         masked = _block_masked(rows, lo, kb.shape[2], causal)
         s.masked_fill_(masked, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
@@ -126,8 +127,7 @@ def _blocked_forward(q5, k, v, causal: bool, q_offset: int, block_k: int):
         p = torch.exp_(s.sub_(m_safe[..., None])).masked_fill_(masked, 0.0)
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("brgqk,brkd->brgqd", p,
-                                                    vb)
+        acc = acc * alpha[..., None] + einsum("brgqk,brkd->brgqd", p, vb)
         m = m_safe
     l = l.clamp_min(1e-30)
     return acc / l[..., None], m + torch.log(l)
@@ -170,15 +170,15 @@ class _BlockedAttention(torch.autograd.Function):
         for lo in range(0, Sk, min(block_k, Sk)):
             kb = k[:, :, lo:lo + block_k].float()
             vb = v[:, :, lo:lo + block_k].float()
-            s = torch.einsum("brgqd,brkd->brgqk", qf, kb)
+            s = einsum("brgqd,brkd->brgqk", qf, kb)
             masked = _block_masked(rows, lo, kb.shape[2], causal)
             p = torch.exp(s.masked_fill(masked, float("-inf"))
                           - lse[..., None]).masked_fill(masked, 0.0)
-            dvs.append(torch.einsum("brgqk,brgqd->brkd", p, doutf))
-            dp = torch.einsum("brgqd,brkd->brgqk", doutf, vb)
+            dvs.append(einsum("brgqk,brgqd->brkd", p, doutf))
+            dp = einsum("brgqd,brkd->brgqk", doutf, vb)
             ds = p * (dp - delta[..., None])
-            dq = dq + torch.einsum("brgqk,brkd->brgqd", ds, kb) * scale
-            dks.append(torch.einsum("brgqk,brgqd->brkd", ds, qf))
+            dq = dq + einsum("brgqk,brkd->brgqd", ds, kb) * scale
+            dks.append(einsum("brgqk,brgqd->brkd", ds, qf))
         return (dq.to(q5.dtype), torch.cat(dks, 2).to(k.dtype),
                 torch.cat(dvs, 2).to(v.dtype), None, None, None)
 
@@ -260,13 +260,13 @@ def attention(
             k_full, v_full = cache.k, cache.v
         new_cache = cache
         q5 = q.movedim(1, 2).reshape(B, rep_kv, G, S, hd)
-        s = torch.einsum("brgqd,brkd->brgqk", q5.float() * hd**-0.5,
-                         k_full.float())
+        s = einsum("brgqd,brkd->brgqk", q5.float() * hd**-0.5,
+                   k_full.float())
         pos = torch.arange(S_max, device=x.device)
         valid = pos[None, :] <= idx + torch.arange(S, device=x.device)[:, None]
         s = s.masked_fill(~valid, float("-inf"))
-        out5 = torch.einsum("brgqk,brkd->brgqd", torch.softmax(s, dim=-1),
-                            v_full.float())
+        out5 = einsum("brgqk,brkd->brgqd", torch.softmax(s, dim=-1),
+                      v_full.float())
     else:
         # ---- prefill (and the train-mode forward) ------------------------
         q5 = q.movedim(1, 2).reshape(B, rep_kv, G, S, hd)

@@ -15,7 +15,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, on_blocks, pad_zeros
+from repro_torch.distributed.sharding import (
+    constrain,
+    einsum,
+    matmul,
+    on_blocks,
+    pad_zeros,
+)
 from repro_torch.models.layers import normal, param_dtype, rms_norm
 
 
@@ -97,12 +103,12 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
 
     # intra-chunk (quadratic within a chunk)
     Lmat = torch.exp(_segsum(dA_t))  # (B, nc, H, Q, Q)
-    CB = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh)
-    y_diag = torch.einsum("bchqs,bcshp->bcqhp", CB * Lmat, xdt)
+    CB = einsum("bcqhn,bcshn->bchqs", Ch, Bh)
+    y_diag = einsum("bchqs,bcshp->bcqhp", CB * Lmat, xdt)
 
     # each chunk's state
     decay_states = torch.exp(dA_cs[..., -1:] - dA_cs)  # (B, nc, H, Q)
-    states = torch.einsum("bcqhn,bchq,bcqhp->bchpn", Bh, decay_states, xdt)
+    states = einsum("bcqhn,bchq,bcqhp->bchpn", Bh, decay_states, xdt)
 
     # the inter-chunk recurrence, a chunk at a time: the state entering
     # each chunk, and the one leaving the last
@@ -116,8 +122,8 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     state_in = torch.stack(entering, dim=1)  # (B, nc, H, P, N)
 
     # the carried state's contribution inside each chunk
-    y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Ch, state_in,
-                         torch.exp(dA_cs))
+    y_off = einsum("bcqhn,bchpn,bchq->bcqhp", Ch, state_in,
+                   torch.exp(dA_cs))
     y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :L]
     return y, prev
 
@@ -131,14 +137,14 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     P, K = cfg.ssm_head_dim, cfg.ssm_conv
     cd = conv_dim(cfg)
 
-    zxbcdt = x @ p["in_proj"]  # (B, S, 2 di + 2 g n + h)
+    zxbcdt = matmul(x, p["in_proj"])  # (B, S, 2 di + 2 g n + h)
     z, xBC, dt_raw = torch.split(zxbcdt, [di, cd, h], dim=-1)
 
     if decode:
         if conv_state is None or ssm_state is None or S != 1:
             raise ValueError("decode takes one token and both carries")
         window = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
-        conv_out = (torch.einsum("bkc,kc->bc", window, p["conv_w"])
+        conv_out = (einsum("bkc,kc->bc", window, p["conv_w"])
                     + p["conv_b"])[:, None, :]
         new_conv = window[:, 1:].float()
     else:
@@ -164,8 +170,8 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         dA = torch.exp(dt[:, 0] * A)  # (B, H)
         xdt = xh[:, 0].float() * dt[:, 0][..., None]  # (B, H, P)
         new_ssm = (ssm_state.float() * dA[:, :, None, None]
-                   + torch.einsum("bhp,bhn->bhpn", xdt, Bh))
-        y = torch.einsum("bhpn,bhn->bhp", new_ssm, Ch)[:, None]
+                   + einsum("bhp,bhn->bhpn", xdt, Bh))
+        y = einsum("bhpn,bhn->bhp", new_ssm, Ch)[:, None]
     else:
         y, new_ssm = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk)
 
@@ -174,7 +180,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # gated RMSNorm (mamba2's norm(y * silu(z)))
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_w"],
                  cfg.norm_eps)
-    return y @ p["out_proj"], (new_conv, new_ssm)
+    return matmul(y, p["out_proj"]), (new_conv, new_ssm)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
