@@ -218,9 +218,13 @@
    (argument bytes must equal the reference's, read on the CPU; flops
    beside the CPU's count and the reference's), L.1a's own cell on a
    (1, 1) mesh (its peak, arguments plus temporaries, beside L.1a's
-   measured peak; its flops beside M.1's), and Qwen3-8B x train_4k and
-   x decode_32k at full width on the 256-rank (16, 16) mesh with 2
-   layers, through the CLI (`--model-override '{"n_layers": 2}'`).
+   measured peak; its flops beside M.1's), and Qwen3-8B x train_4k,
+   x prefill_32k and x decode_32k at full width on the 256-rank (16, 16)
+   mesh with 2 layers, through the CLI (`--model-override '{"n_layers":
+   2}'`), each one's temporaries beside the count of the tree before the
+   sharded plan ran its cross-entropy, attention state, embedding, MLP
+   input and mamba2 in-projection on each rank's blocks
+   (`M_CLI_BEFORE`); train_4k's and prefill_32k's must be below it.
    Every cell must be `ok`.
 14. Phase C: each kernel against its plain version on the card at the
    phases' shapes: the Hamming kernel at phase A's shape and at the largest
@@ -439,6 +443,7 @@ M_CELLS = {
     "qwen-decode": ("qwen2.5-3b", True, *M_TINY,
                     ("tiny_decode", "decode", 64, 8), (2, 4)),
     "mamba-train": ("mamba2-1.3b", True, *M_TINY, M_TRAIN, (2, 4)),
+    "moe-train": ("phi3.5-moe-42b-a6.6b", True, *M_TINY, M_TRAIN, (2, 4)),
     "qwen-train-1": ("qwen2.5-3b", True, *M_TINY, M_TRAIN, (1, 1)),
     "L.1a": (LM_ARCH, False, {"n_layers": I_LAYERS},
              {"grad_accum": {"card_train": L_ACCUM}},
@@ -447,13 +452,22 @@ M_CELLS = {
 M_CPU = {  # name -> (argument bytes, flops, the reference's flops)
     "qwen-train": (252_424, 49_283_072, 48_234_496),
     "qwen-train-noremat": (252_424, 39_845_888, 39_845_888),
-    "qwen-prefill": (83_968, 12_066_816, 5_775_360),
-    "qwen-decode": (116_244, 393_216, 196_608),
-    "mamba-train": (201_544, 59_768_832, 37_814_272),
+    "qwen-prefill": (83_968, 5_775_360, 5_775_360),
+    "qwen-decode": (116_244, 196_608, 196_608),
+    "mamba-train": (201_544, 37_748_736, 37_814_272),
+    "moe-train": (270_088, 397_410_304, 361_758_720),
     "qwen-train-1": (994_056, 394_264_576, 385_875_968),
 }
-M_CLI = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"))
+M_CLI = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+         ("qwen3-8b", "decode_32k"))
 M_CLI_LAYERS = 2
+# the CLI cells' temporaries (bytes) on the tree before the sharded plan ran
+# the cross-entropy, the attention's state, the embedding, the MLP's input
+# and mamba2's in-projection on each rank's blocks, counted by the dry run
+# at 2 layers on the build host's CPU (torch 2.13); train_4k and
+# prefill_32k must now count less
+M_CLI_BEFORE = {"train_4k": 191_784_534_028, "prefill_32k": 20_288_765_952,
+                "decode_32k": 2_489_319_488}
 M_TAG = "chip_smoke"
 M_JOIN_S = 300.0
 M_CELL = """
@@ -3308,6 +3322,13 @@ def dryrun_phase(sharded: dict, card: str) -> dict:
               f" != the reference's {arg_bytes}")
         res["flops_equal_cpu"] = res["hlo"]["flops"] == flops
         res["flops_over_reference"] = res["hlo"]["flops"] / ref_flops
+    for arch, shape in M_CLI:
+        res = m2[f"{arch} x {shape}"]
+        res["temp_before"] = M_CLI_BEFORE[shape]
+        if shape != "decode_32k":
+            check(res["memory"]["temp_bytes"] < M_CLI_BEFORE[shape],
+                  f"M.2 {arch} x {shape}: temp {res['memory']['temp_bytes']}"
+                  f" B, not below {M_CLI_BEFORE[shape]} B")
     dry = m2["L.1a"]
     dry_peak = dry["memory"]["argument_bytes"] + dry["memory"]["temp_bytes"]
     dry["peak_over_card_peak"] = dry_peak / l1a["peak_bytes"]
@@ -3323,6 +3344,10 @@ def dryrun_phase(sharded: dict, card: str) -> dict:
             extra = (f"; peak {dry_peak} B = {dry['peak_over_card_peak']:.4f}"
                      f" x L.1a's measured {l1a['peak_bytes']} B, flops == "
                      f"M.1's: {dry['flops_equal_m1']}")
+        else:
+            extra = (f"; temp {mem['temp_bytes']} B against "
+                     f"{res['temp_before']} B on the tree before the "
+                     f"regions ran on blocks (CPU count)")
         print(f"phase M.2 {name} ({res['n_devices']} ranks, rank 0's "
               f"counts): argument {mem['argument_bytes']} B, temp "
               f"{mem['temp_bytes']} B, output {mem['output_bytes']} B, alias "

@@ -142,15 +142,25 @@ def constrain(x: torch.Tensor, names: tuple) -> torch.Tensor:
     """The reference's `with_sharding_constraint` by logical names: `x`
     itself without rules (or when `x` is not a DTensor), else `x`
     redistributed to the names' placements on its mesh."""
-    rules = _ACTIVE_RULES.get()
-    if rules is None or not is_dtensor(x):
+    if _ACTIVE_RULES.get() is None or not is_dtensor(x):
         return x
-    mesh = x.device_mesh
-    spec = rules.act_spec(names)
-    place = placements(spec, mesh, shape=tuple(x.shape), strict=False)
-    if tuple(place) == tuple(x.placements):
-        return x
-    return x.redistribute(mesh, place)
+    return to_placements(x, x.device_mesh, act_placements(x, names))
+
+
+def act_placements(x: torch.Tensor, names: tuple,
+                   shape: tuple | None = None) -> tuple:
+    """The placements on DTensor `x`'s mesh of an activation of `shape`
+    (default `x`'s) under the logical `names` and the active rules (all
+    `Replicate()` without rules); a dim the mesh does not divide stays
+    whole."""
+    from torch.distributed.tensor import Replicate
+
+    rules, mesh = _ACTIVE_RULES.get(), x.device_mesh
+    if rules is None:
+        return (Replicate(),) * mesh.ndim
+    return placements(rules.act_spec(names), mesh,
+                      shape=tuple(x.shape if shape is None else shape),
+                      strict=False)
 
 
 # ---------------------------------------------------------------------------
@@ -411,9 +421,12 @@ def param_partition_specs(params: Any, rules: ShardingRules):
 
 
 # ---------------------------------------------------------------------------
-# regions DTensor cannot shard: the model calls these, and each is the
-# plain op on a plain tensor. Where a rule is missing or wrong in the
-# card's torch (2.11), a helper says so; drop it with the rule's fix.
+# regions DTensor cannot shard as the reference does: the model calls
+# these, and each is the plain op on a plain tensor. A block region
+# (`block_of`, `on_local`, `split_blocks`) runs on each rank's blocks,
+# its reductions over a mesh dim explicit. Where a rule is missing or
+# wrong in the card's torch (2.11), a helper says so; drop it with the
+# rule's fix.
 # ---------------------------------------------------------------------------
 def is_dtensor(x) -> bool:
     return hasattr(x, "device_mesh") and hasattr(x, "placements")
@@ -424,26 +437,67 @@ def full(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
-def layout(x):
-    """(mesh, placements) of a DTensor; None for anything else."""
-    return (x.device_mesh, tuple(x.placements)) if is_dtensor(x) else None
+def settled(x):
+    """A DTensor `x` with its pending sums (`Partial`) all-reduced to
+    `Replicate()`; anything else itself. DTensor may otherwise settle
+    one by a reduce-scatter onto another dim, and the ops after it follow
+    that dim."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
 
 
-def whole(fn, *xs, like=None):
-    """`fn(*xs)`; with `like` (a `layout`), `fn` runs on every rank over
-    the whole tensors (`full`) and its result is placed so. For a
-    function DTensor has no rule for, outside autograd (the embedding
-    gather's sorted segment sum: `aten.segment_reduce` and the in-place
-    `index_add_` into a plain tensor have none)."""
-    if like is None:
-        return fn(*xs)
-    from torch.distributed.tensor import DTensor, Replicate
+def without_dim(place: tuple, i: int) -> tuple:
+    """`place` with mesh dim `i` made `Replicate()`."""
+    from torch.distributed.tensor import Replicate
 
-    mesh, place = like
-    out = DTensor.from_local(fn(*(full(x) for x in xs)), mesh,
-                             [Replicate()] * mesh.ndim, run_check=False)
-    return out if tuple(place) == tuple(out.placements) else \
-        out.redistribute(mesh, place)
+    return tuple(Replicate() if j == i else p for j, p in enumerate(place))
+
+
+def to_placements(x: torch.Tensor, mesh, place: tuple):
+    """`x` on `place`: a DTensor redistributed (itself where it is there
+    already), a plain tensor (the same on every rank) kept as this rank's
+    block (`place_whole`)."""
+    if not is_dtensor(x):
+        return place_whole(x, mesh, place)
+    return x if tuple(x.placements) == tuple(place) else \
+        x.redistribute(mesh, place)
+
+
+def block_of(x, dim: int):
+    """(mesh dim, this rank's first index along `dim`) where exactly one
+    mesh dim of more than one rank shards DTensor `x`'s dim `dim`, evenly,
+    and no placement of `x` is a pending sum; None otherwise (a plain
+    tensor, a dim whole on every rank, or a layout the callers' block
+    regions do not take)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return None
+    dim %= x.ndim
+    mesh = x.device_mesh
+    if not all(isinstance(p, (Shard, Replicate)) for p in x.placements):
+        return None
+    idx = [i for i, p in enumerate(x.placements)
+           if isinstance(p, Shard) and p.dim == dim and mesh.shape[i] > 1]
+    if len(idx) != 1 or x.shape[dim] % mesh.shape[idx[0]]:
+        return None
+    i = idx[0]
+    return i, mesh.get_coordinate()[i] * (x.shape[dim] // mesh.shape[i])
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, i: int) -> torch.Tensor:
+    """This rank's plain tensor `t` reduced by `op` ("sum", "max") over
+    mesh dim `i`'s group: a functional collective, as DTensor issues
+    them, so an op recorder counts it (outside autograd)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, (mesh, i))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
 
 
 def on_blocks(fn, x, dim: int):
@@ -460,6 +514,24 @@ def on_blocks(fn, x, dim: int):
     x = replicate_dim(x, dim)
     return DTensor.from_local(fn(x.to_local()), x.device_mesh,
                               x.placements, run_check=False)
+
+
+def on_local(fn, xs: list, places: list, outs: list, grads: list = None):
+    """`fn` over this rank's blocks (`local_map`): each DTensor of `xs` put
+    on its entry of `places`, `fn` run on the local tensors, and its
+    outputs made DTensors on `outs`. An entry of `grads` (None: the input's
+    own placements) lays out that input's gradient block: `Partial()` on a
+    mesh dim whose ranks each use the same replicated input for their own
+    blocks alone. Autograd goes through `to_local` / `from_local`, so
+    `fn`'s backward runs on plain tensors."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = xs[0].device_mesh
+    grads = grads or [None] * len(xs)
+    ys = fn(*(to_placements(x, mesh, p).to_local(grad_placements=g)
+              for x, p, g in zip(xs, places, grads)))
+    return tuple(DTensor.from_local(y, mesh, p, run_check=False)
+                 for y, p in zip(ys, outs))
 
 
 def write_slice(buf: torch.Tensor, dim: int, start: int,
@@ -495,19 +567,21 @@ def write_slice(buf: torch.Tensor, dim: int, start: int,
 def pad_zeros(x: torch.Tensor, dim: int, before: int = 0,
               after: int = 0) -> torch.Tensor:
     """`x` with `before` and `after` zero rows along `dim` (`F.pad`). A
-    DTensor's pad is a `torch.cat` (the same values): torch 2.11's
-    `constant_pad_nd` rule gives a mesh of two dims a one-dim
-    placement."""
+    DTensor's pad is a `torch.cat` (the same values) along `dim`, gathered
+    whole first, with zeros laid out as `x` is, so the cat keeps the other
+    placements: torch 2.11's `constant_pad_nd` rule gives a mesh of two
+    dims a one-dim placement."""
     dim %= x.dim()
     if not is_dtensor(x):
         widths = [0, 0] * (x.dim() - 1 - dim) + [before, after]
         return torch.nn.functional.pad(x, widths)
+    x = replicate_dim(x, dim)
+    row = torch.zeros_like(x.narrow(dim, 0, 1))
     parts = []
     for n in (before, after):
         shape = list(x.shape)
         shape[dim] = n
-        parts.append(torch.zeros(shape, dtype=x.dtype, device=x.device)
-                     if n else None)
+        parts.append(row.expand(shape) if n else None)
     return torch.cat([t for t in (parts[0], x, parts[1]) if t is not None],
                      dim=dim)
 
@@ -607,6 +681,28 @@ def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
                   else p for p in x.placements)
     return x if place == tuple(x.placements) else x.redistribute(
         x.device_mesh, place)
+
+
+def split_blocks(x: torch.Tensor, sizes: list, dim: int) -> list:
+    """`torch.split(x, sizes, dim)`, each part of a DTensor `x` laid out
+    as `x` is along its own extent: `dim` is gathered whole (the parts'
+    boundaries need not fall on the blocks of `x`), split, and each part
+    cut back onto the mesh dims that sharded `dim` where they divide it
+    (a local slice, no collective)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(x):
+        return list(torch.split(x, sizes, dim))
+    dim %= x.ndim
+    mesh, place = x.device_mesh, tuple(x.placements)
+    parts = torch.split(replicate_dim(x, dim), sizes, dim)
+    out = []
+    for part, n in zip(parts, sizes):
+        want = tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == dim
+            and n % mesh.shape[i] else p for i, p in enumerate(place))
+        out.append(to_placements(part, mesh, want))
+    return out
 
 
 def split_ready(x: torch.Tensor, dim: int, pieces: int) -> torch.Tensor:

@@ -33,7 +33,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
-from repro_torch.distributed.sharding import replicate_dim
+from repro_torch.distributed.sharding import (
+    all_reduce,
+    block_of,
+    replicate_dim,
+    to_placements,
+    without_dim,
+)
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
@@ -107,14 +113,61 @@ def init_train_state(cfg: ModelConfig, pcfg: ParallelConfig,
         else None)
 
 
+class _BlockNLL(torch.autograd.Function):
+    """`_token_nll` over a vocabulary cut into blocks across the ranks of
+    mesh dim `i`: `logits` is this rank's float32 block (..., Vb) of the
+    columns from `start`, `labels` (...) the global ids. The row max, the
+    sum of exponentials and the gold logit (0 from a rank whose block
+    lacks the label) are each reduced over the group; the backward is
+    this rank's block alone: softmax less the block's one-hot, times the
+    incoming gradient. It may run twice (the CE chunks' checkpoint
+    recomputes it in the backward)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, mesh, i):
+        m = all_reduce(logits.amax(-1), "max", mesh, i)
+        s = all_reduce(torch.exp(logits - m[..., None]).sum(-1), "sum",
+                       mesh, i)
+        lse = m + torch.log(s)
+        local = labels.long() - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(inside, local, 0)
+        gold = logits.gather(-1, local[..., None])[..., 0]
+        gold = all_reduce(torch.where(inside, gold, 0.0), "sum", mesh, i)
+        ctx.save_for_backward(logits, local, inside, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, inside, lse = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, local[..., None],
+                          -inside[..., None].to(grad.dtype))
+        return grad.mul_(g[..., None]), None, None, None, None
+
+
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """logsumexp(logits) - logits[label] over the last axis, float32.
-    A vocab-sharded DTensor's rows are gathered whole first: DTensor's
-    masked gather along a sharded dim fails in its reduction."""
-    logits = replicate_dim(logits.float(), -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return lse - gold
+    A DTensor whose vocabulary one mesh dim shards runs on each rank's
+    block (`_BlockNLL`), its result replicated over that dim; any other
+    DTensor has its rows gathered whole first."""
+    logits = logits.float()
+    blk = block_of(logits, -1)
+    if blk is None:
+        logits = replicate_dim(logits, -1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return lse - gold
+    from torch.distributed.tensor import DTensor
+
+    i, start = blk
+    mesh = logits.device_mesh
+    place = without_dim(logits.placements, i)
+    labels = to_placements(labels, mesh, place)
+    nll = _BlockNLL.apply(logits.to_local(), labels.to_local(), start, mesh,
+                          i)
+    return DTensor.from_local(nll, mesh, place, run_check=False,
+                              shape=labels.shape, stride=labels.stride())
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor

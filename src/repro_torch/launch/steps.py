@@ -35,12 +35,11 @@ from repro_torch.distributed.sharding import (
     ShardingRules,
     compute_mesh,
     full,
-    is_dtensor,
     map_tree,
     named_shardings,
     param_partition_specs,
-    place_whole,
     shard_tree,
+    to_placements,
     tree_placements,
     use_rules,
 )
@@ -245,13 +244,8 @@ def redistribute_tree(tree, place_tree, mesh):
     """Every tensor leaf of `tree` on the placements at the same place in
     `place_tree`: a DTensor is redistributed, a plain tensor (made whole
     on every rank) kept as this rank's block."""
-    def one(_, x, place):
-        if not is_dtensor(x):
-            return place_whole(x, mesh, place)
-        return x if tuple(x.placements) == tuple(place) else \
-            x.redistribute(mesh, place)
-
-    return map_tree(one, tree, place_tree)
+    return map_tree(lambda _, x, place: to_placements(x, mesh, place), tree,
+                    place_tree)
 
 
 def full_tree(tree):

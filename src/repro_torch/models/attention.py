@@ -108,14 +108,14 @@ def _blocked_forward(q5, k, v, causal: bool, q_offset: int, block_k: int):
     temporaries, and it runs without autograd (under `no_grad`, or as
     `_BlockedAttention.forward`).
     """
-    B, R, G, Sq, hd = q5.shape
+    Sq, hd = q5.shape[3:]
     Sk = k.shape[2]
-    dev = q5.device
     qf = q5.float() * hd**-0.5
-    rows = torch.arange(Sq, device=dev)[:, None] + q_offset
-    m = torch.full((B, R, G, Sq), float("-inf"), device=dev)
-    l = torch.zeros((B, R, G, Sq), device=dev)
-    acc = torch.zeros((B, R, G, Sq, hd), device=dev)
+    rows = torch.arange(Sq, device=q5.device)[:, None] + q_offset
+    # the running state is made like `qf`, so a DTensor's is its block
+    m = torch.full_like(qf[..., 0], float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
     for lo in range(0, Sk, min(block_k, Sk)):
         kb = k[:, :, lo:lo + block_k].float()
         vb = v[:, :, lo:lo + block_k].float()
@@ -127,7 +127,8 @@ def _blocked_forward(q5, k, v, causal: bool, q_offset: int, block_k: int):
         p = torch.exp_(s.sub_(m_safe[..., None])).masked_fill_(masked, 0.0)
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + einsum("brgqk,brkd->brgqd", p, vb)
+        acc = acc.mul_(alpha[..., None]).add_(
+            einsum("brgqk,brkd->brgqd", p, vb))
         m = m_safe
     l = l.clamp_min(1e-30)
     return acc / l[..., None], m + torch.log(l)

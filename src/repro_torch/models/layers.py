@@ -13,7 +13,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, layout, matmul, whole
+from repro_torch.distributed.sharding import (
+    block_of,
+    constrain,
+    is_dtensor,
+    matmul,
+    settled,
+    to_placements,
+    without_dim,
+)
 
 _DRAW_ELEMS = 1 << 26  # float32 draws per slab (256 MB)
 
@@ -45,45 +53,93 @@ class _GatherRows(torch.autograd.Function):
     """`table[ids]` for in-range long ids, with a deterministic backward:
     the output gradient's rows are stably sorted by id and summed a
     segment (one table row) at a time, in batch order. Nothing in it waits
-    for the card: the segment lengths are counted on the device."""
+    for the card: the segment lengths are counted on the device.
+
+    With `start` (an int), `table` is one block of a larger table's rows,
+    from row `start`: an id outside the block gathers zeros, and the
+    backward sums only the rows whose ids fall in the block."""
 
     @staticmethod
-    def forward(table, ids):
-        return table[ids]
+    def forward(table, ids, start):
+        if start is None:
+            return table[ids]
+        local, inside = _in_block(ids, start, table.shape[0])
+        return torch.where(inside[..., None], table[local], 0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        table, ids = inputs
+        table, ids, start = inputs
         ctx.save_for_backward(ids)
-        ctx.n_rows = table.shape[0]
-        ctx.layout = layout(table)
+        ctx.n_rows, ctx.start = table.shape[0], start
 
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
-        return whole(lambda g, i: _sorted_segment_sum(g, i, ctx.n_rows),
-                     grad, ids, like=ctx.layout), None
+        return _sorted_segment_sum(grad, ids, ctx.n_rows, ctx.start), \
+            None, None
 
 
-def _sorted_segment_sum(grad, ids, n_rows: int) -> torch.Tensor:
+def _in_block(ids, start: int, n_rows: int):
+    """(ids - start where inside the block of `n_rows` rows, else 0;
+    inside)."""
+    local = ids - start
+    inside = (local >= 0) & (local < n_rows)
+    return torch.where(inside, local, 0), inside
+
+
+def _sorted_segment_sum(grad, ids, n_rows: int,
+                        start: int | None = None) -> torch.Tensor:
     """(n_rows, ...) sums of `grad`'s rows by id: stably sorted, a segment
-    at a time."""
+    at a time. With `start`, the ids are global and the sums those of
+    the block of `n_rows` from `start`: the rows of other ids sort after
+    the block's (as id `n_rows`), and no segment sums them."""
     flat = ids.reshape(-1)
+    segments = n_rows
+    if start is not None:
+        local, inside = _in_block(flat, start, n_rows)
+        flat = torch.where(inside, local, n_rows)
+        segments += 1
     order = torch.argsort(flat, stable=True)
     rows = grad.reshape(flat.numel(), -1)[order]
-    lengths = torch.zeros(n_rows, dtype=torch.long,
+    lengths = torch.zeros(segments, dtype=torch.long,
                           device=flat.device).index_add_(
         0, flat, torch.ones_like(flat))
-    sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
-                                unsafe=True)
+    sums = torch.segment_reduce(rows, "sum", lengths=lengths[:n_rows],
+                                axis=0, unsafe=True)
     return sums.reshape((n_rows,) + grad.shape[ids.dim():])
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """`table[ids]` (ids long and in range) whose gradient is the same bits
     on every run: PyTorch's own backward of an index accumulates repeated
-    ids in a varying order on the CPU."""
-    return _GatherRows.apply(table, ids)
+    ids in a varying order on the CPU.
+
+    A DTensor table runs on each rank's block: its row block (every
+    other mesh dim gathered), the ids of the rank's batch block, a masked
+    local gather left as a pending sum over the mesh dim that shards the
+    rows (the caller resolves it: `constrain`), and a backward that sums
+    the rank's own rows, its gradient pending over the mesh dims that
+    shard the ids, for DTensor to reduce onto the table's placement."""
+    if not is_dtensor(table):
+        return _GatherRows.apply(table, ids, None)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    blk = block_of(table, 0)
+    i = None if blk is None else blk[0]
+    table = to_placements(table, mesh, tuple(
+        Shard(0) if j == i else Replicate() for j in range(mesh.ndim)))
+    place = without_dim(ids.placements, i) if is_dtensor(ids) \
+        else (Replicate(),) * mesh.ndim
+    ids = to_placements(ids, mesh, place)
+    grad_place = [Shard(0) if j == i else Partial()
+                  if isinstance(place[j], Shard) else Replicate()
+                  for j in range(mesh.ndim)]
+    out = _GatherRows.apply(table.to_local(grad_placements=grad_place),
+                            ids.to_local(), None if blk is None else blk[1])
+    return DTensor.from_local(out, mesh, [
+        Partial() if j == i else p for j, p in enumerate(place)],
+        run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +151,12 @@ def init_rms_norm(dim: int, dtype, device, lead: tuple = ()) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if block_of(xf, -1) is None:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:  # a sharded last dim (mamba2's gated norm): all-reduce the sum
+        var = settled((xf * xf).sum(-1, keepdim=True)) / xf.shape[-1]
     out = xf * torch.rsqrt(var + eps)
+    del xf  # a float32 copy of a bfloat16 `x` goes before the next product
     return (out * w.float()).to(x.dtype)
 
 

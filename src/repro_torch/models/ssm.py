@@ -16,11 +16,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
+    block_of,
     constrain,
     einsum,
     matmul,
     on_blocks,
+    on_local,
     pad_zeros,
+    split_blocks,
+    split_ready,
+    without_dim,
 )
 from repro_torch.models.layers import normal, param_dtype, rms_norm
 
@@ -113,7 +118,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     # the inter-chunk recurrence, a chunk at a time: the state entering
     # each chunk, and the one leaving the last
     chunk_decay = torch.exp(dA_cs[..., -1])  # (B, nc, H)
-    prev = (torch.zeros((Bsz, H, P, N), device=x.device)
+    prev = (torch.zeros_like(states[:, 0])
             if init_state is None else init_state.float())
     entering = []
     for c in range(nc):
@@ -128,6 +133,56 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     return y, prev
 
 
+def _in_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The in-projection of x (B, S, D) -> (z, [xBC] or [x, B, C], dt,
+    and the conv weights and biases of those parts). Where a DTensor
+    `in_proj`'s columns are sharded, each part is its own product with
+    its own columns, sharded along them (`split_blocks`): the split of
+    one product at boundaries the model axis does not divide would
+    gather it, and the SSD would run on every head on every rank."""
+    di, gn, h = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_heads
+    if block_of(p["in_proj"], -1) is None:
+        z, xbc, dt_raw = torch.split(matmul(x, p["in_proj"]),
+                                     [di, conv_dim(cfg), h], dim=-1)
+        return z, [xbc], dt_raw, [p["conv_w"]], [p["conv_b"]]
+    z, *xbc, dt_raw = (matmul(x, w) for w in split_blocks(
+        p["in_proj"], [di, di, gn, gn, h], -1))
+    return (z, xbc, dt_raw, split_blocks(p["conv_w"], [di, gn, gn], -1),
+            split_blocks(p["conv_b"], [di, gn, gn], -1))
+
+
+def _ssd_heads(x, dt, A, B_, C_, chunk: int):
+    """`ssd_chunked` on each rank's heads. Where a DTensor `x`'s heads
+    are sharded over one mesh dim whose block holds whole groups of B
+    and C (or there is one group), each rank runs the SSD on its own
+    heads' plain blocks, as the reference's rank does; otherwise the
+    whole call goes to DTensor (whose backward of the chunk einsums
+    gathers the heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    blk = block_of(x, 2)
+    if blk is None:
+        return ssd_chunked(x, dt, A, B_, C_, chunk)
+    i, place = blk[0], tuple(x.placements)
+    m, (H, G) = x.device_mesh.shape[i], (x.shape[2], B_.shape[2])
+    if G == 1:
+        bc, bc_grad = without_dim(place, i), [
+            Partial() if j == i else p for j, p in enumerate(place)]
+    elif G % m == 0 and (H // m) % (H // G) == 0:
+        bc, bc_grad = place, None
+    else:
+        return ssd_chunked(x, dt, A, B_, C_, chunk)
+    # A is whole over the batch's mesh dims: its gradient is pending there
+    heads = tuple(Shard(0) if j == i else Replicate()
+                  for j in range(len(place)))
+    a_grad = [Shard(0) if j == i else Partial() if isinstance(p, Shard)
+              else p for j, p in enumerate(place)]
+    state = tuple(Shard(1) if j == i else p for j, p in enumerate(place))
+    return on_local(lambda *t: ssd_chunked(*t, chunk),
+                    [x, dt, A, B_, C_], [place, place, heads, bc, bc],
+                    [place, state], [None, None, a_grad, bc_grad, bc_grad])
+
+
 def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  conv_state=None, ssm_state=None, decode: bool = False):
     """x (B, S, D) -> (y (B, S, D), (conv_state, ssm_state)): the new
@@ -135,29 +190,32 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
     P, K = cfg.ssm_head_dim, cfg.ssm_conv
-    cd = conv_dim(cfg)
 
-    zxbcdt = matmul(x, p["in_proj"])  # (B, S, 2 di + 2 g n + h)
-    z, xBC, dt_raw = torch.split(zxbcdt, [di, cd, h], dim=-1)
-
+    z, xbc, dt_raw, conv_w, conv_b = _in_proj(p, x, cfg)
     if decode:
         if conv_state is None or ssm_state is None or S != 1:
             raise ValueError("decode takes one token and both carries")
-        window = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
-        conv_out = (einsum("bkc,kc->bc", window, p["conv_w"])
-                    + p["conv_b"])[:, None, :]
-        new_conv = window[:, 1:].float()
+        states = (conv_state,) if len(xbc) == 1 else split_blocks(
+            conv_state, [di, g * n, g * n], -1)
+        windows = [torch.cat([c.to(t.dtype), t], dim=1)
+                   for c, t in zip(states, xbc)]
+        conv_out = [(einsum("bkc,kc->bc", wd, w) + b)[:, None, :]
+                    for wd, w, b in zip(windows, conv_w, conv_b)]
+        tails = [wd[:, 1:] for wd in windows]
     else:
-        conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+        conv_out = [_causal_conv(t, w, b)
+                    for t, w, b in zip(xbc, conv_w, conv_b)]
         # the carry for a later decode: the last K-1 raw xBC inputs
-        tail = (xBC[:, -(K - 1):] if S >= K - 1
-                else pad_zeros(xBC, 1, before=K - 1 - S))
-        new_conv = tail.float()
-    xBC = F.silu(conv_out)
-    xc, B_, C_ = torch.split(xBC, [di, g * n, g * n], dim=-1)
+        tails = [t[:, -(K - 1):] if S >= K - 1
+                 else pad_zeros(t, 1, before=K - 1 - S) for t in xbc]
+    new_conv = (tails[0] if len(tails) == 1
+                else torch.cat(tails, dim=-1)).float()
+    xc, B_, C_ = (F.silu(t) for t in (
+        conv_out if len(conv_out) == 3
+        else torch.split(conv_out[0], [di, g * n, g * n], dim=-1)))
     xh = xc.reshape(B, S, h, P)
-    B_ = B_.reshape(B, S, g, n)
-    C_ = C_.reshape(B, S, g, n)
+    B_ = split_ready(B_, -1, g).reshape(B, S, g, n)
+    C_ = split_ready(C_, -1, g).reshape(B, S, g, n)
     xh = constrain(xh, ("act_batch", None, "act_heads", None))
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
@@ -173,7 +231,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    + einsum("bhp,bhn->bhpn", xdt, Bh))
         y = einsum("bhpn,bhn->bhp", new_ssm, Ch)[:, None]
     else:
-        y, new_ssm = ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk)
+        y, new_ssm = _ssd_heads(xh, dt, A, B_, C_, cfg.ssm_chunk)
 
     y = y + p["D"][:, None] * xh.float()
     y = y.reshape(B, S, di).to(x.dtype)

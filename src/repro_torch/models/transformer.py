@@ -143,11 +143,15 @@ def _attn_mlp_block(p, x, cfg, positions, *, cache=None, cache_index=None,
         p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, positions,
         cache=cache, cache_index=cache_index, make_cache=make_cache,
         cache_len=cache_len, cache_dtype=cache_dtype, attn_impl=attn_impl)
-    x = x + h
+    # the attention's output projection leaves its sum pending: resolved
+    # before the residual add (which would otherwise split `x` into
+    # per-rank parts of the sum), else DTensor keeps it pending through
+    # the MLP by gathering the MLP's column-sharded weights whole
+    x = x + constrain(h, ("act_batch", "act_seq", None))
     if use_moe:
         y, aux = moe_layer(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps),
                            cfg)
-        return constrain(x + y, ("act_batch", "act_seq", None)), aux, \
+        return x + constrain(y, ("act_batch", "act_seq", None)), aux, \
             new_cache
     # `h` lives until the block returns: freeing it earlier fragments the
     # caching allocator enough to run full-width training out of memory
@@ -207,7 +211,10 @@ def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"].long()
     if cfg.family == "audio":
         return _audio_embed(params, tokens)
-    x = gather_rows(params["embed"], tokens)  # (B, S, D)
+    # a vocab-sharded table's rows come back as a pending sum: resolved
+    # here, as the residual is
+    x = constrain(gather_rows(params["embed"], tokens),  # (B, S, D)
+                  ("act_batch", "act_seq", None))
     if cfg.family == "vlm" and "vision_embeds" in batch:
         vis = batch["vision_embeds"].to(x.dtype)
         pos = batch["vision_pos"].long()
@@ -219,10 +226,9 @@ def embed_tokens(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 def _audio_embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, K, S), embed (K, V, D): each codebook's gather, summed
     over K."""
-    table = params["embed"]
-    per = torch.stack([gather_rows(table[k], tokens[:, k])
-                       for k in range(table.shape[0])])  # (K, B, S, D)
-    return per.sum(0)
+    per = torch.stack([gather_rows(t, tokens[:, k]) for k, t in
+                       enumerate(params["embed"].unbind(0))])  # (K, B, S, D)
+    return constrain(per.sum(0), ("act_batch", "act_seq", None))
 
 
 def unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
