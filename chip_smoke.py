@@ -111,8 +111,18 @@
    the ms of each bank's scan beside the one full-catalog scan; and
    `sharded_embedding_bag`'s decomposition over 4 banks of phase A's item
    table on the pool kernel, bit-equal to the plain versions and within
-   1e-6 of the one-table pool. H.1's launches count in the kernel table;
-   H.2's are comparisons and do not.
+   1e-6 of the one-table pool. H.3: phase A's engine on the 1 x 1 grid
+   behind the concurrent front-end, whose drain thread sends each chunk
+   down its stream (a header on the store, the rows in an NCCL broadcast)
+   before serving it: E.1's stream bit-equal to the sync front-end on the
+   mesh engine, 2 pool and 1 Hamming launches a bucket; a LiveCatalog
+   attached, an update and a compaction in the pause window between two
+   halves, each half bit-equal to sync on its epoch; a bank-sharded
+   snapshot restored onto the grid, bit-equal; q/s (median of 3 runs)
+   against E.1's unsharded concurrent q/s, and the host ms a chunk spends
+   in the stream's header and broadcast (median of 3 runs). H.1's and
+   H.3's launches count in the kernel table; H.2's are comparisons and
+   do not.
 9. Phase I: LM training on the card (`distributed.training`), Qwen3-8B
    at full width (d_model 4096, 32 heads over 8 kv heads, head_dim 128,
    d_ff 12288, vocab 151,936, qk-norm) with its depth cut to 4 layers
@@ -1008,6 +1018,12 @@ def mode_summary(mode: str, v: dict) -> str:
         text += (f"; profiled run: {p['device_ms']:.3f} ms on the card in "
                  f"{p['wall_ms']:.1f} ms, idle share {p['idle_share']:.3f}")
     return text + ")"
+
+
+def e1_queries(inputs, seed: int) -> list[dict]:
+    """E.1's stream: the first draw of phase E's generator."""
+    rng = np.random.default_rng(seed + 4)
+    return split_queries(make_batch(rng, inputs["A"]["cfg"], N_QUERIES_E1))
 
 
 def serving_phase(eng_a, eng_b, inputs, seed: int, ops, card: str) -> dict:
@@ -1941,6 +1957,127 @@ def mesh_live(eng_a, batches, mesh, seed: int, ops) -> tuple[dict, dict]:
              "compact_s": compact_s}, add_counts(lc, lc2))
 
 
+def same_tickets(got, want, what: str) -> None:
+    """Two lists of served tickets: every one ok, items and scores equal
+    bit for bit."""
+    check(len(got) == len(want) and all(g.ok for g in got),
+          f"{what}: {len(got)} tickets, statuses "
+          f"{sorted({g.status for g in got})}")
+    check(all(np.array_equal(g.items, w.items)
+              and np.array_equal(g.scores, w.scores)
+              for g, w in zip(got, want)), f"{what}: tickets differ")
+
+
+def sync_tickets(eng, queries) -> list:
+    from repro_torch.serving import make_server
+
+    server = make_server(eng, "sync", max_batch=BATCH)
+    got = server.serve_many(queries)
+    server.close()
+    return got
+
+
+def mesh_stream(eng_a, queries, batches, mesh, seed: int, ops,
+                e1_qps: float) -> tuple[dict, dict]:
+    """H.3: phase A's engine on the 1 x 1 grid served through the
+    concurrent front-end, whose drain thread sends each chunk down the
+    stream (a header on the store, the rows in an NCCL broadcast) before
+    serving it: E.1's stream bit-equal to the sync front-end on the mesh
+    engine; a LiveCatalog attached, an update and a compaction in the
+    pause window between two halves, each half sync's bits on its epoch;
+    a bank-sharded snapshot restored bit-equal; then q/s and the host ms a
+    chunk spends sending, each the median of 3 runs -> (record,
+    launches)."""
+    from repro_torch.serving import LiveCatalog, make_server
+
+    knobs = {"tenants": 2, "depth": 2, "queue_depth": None,
+             "autostart": False}  # E.1's concurrent front-end
+    sharded = eng_a.shard(mesh, "banks", query_axis="qp")
+    n_buckets = -(-len(queries) // BATCH)
+    want = sync_tickets(sharded, queries)
+    # the counted run: E.1's stream, staged
+    conc = make_server(sharded, "concurrent", max_batch=BATCH, **knobs)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = conc.serve_many(queries)
+    launches = ops.launch_counts()
+    conc.close()
+    same_tickets(got, want, "H.3 concurrent vs sync on the mesh engine")
+    check(launches["embedding_pool"] == 2 * n_buckets
+          and launches["hamming_distances"] == n_buckets
+          and launches["streaming_nns"] == 0,
+          f"H.3: launches {launches} for {n_buckets} buckets")
+    check([c[1] for c in conc.chunk_log] == [0] * len(conc.chunk_log)
+          and sum(c[2] for c in conc.chunk_log) == len(queries),
+          f"H.3: chunk log {list(conc.chunk_log)}")
+    # the live run: an update and a compaction between two halves
+    rng = np.random.default_rng(seed + 13)
+    n, d = eng_a.item_table_q.values.shape
+    cat = LiveCatalog(sharded, delta_capacity=64)
+    conc = make_server(cat.engine, "concurrent", max_batch=BATCH, **knobs)
+    cat.attach(conc)
+    before = cat.engine
+    first, second = queries[:4 * BATCH], queries[4 * BATCH:]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got1 = conc.serve_many(first)
+    hot = eng_a.item_hot.hot_ids.cpu().numpy()
+    ids = np.r_[np.arange(n, n + 16), hot[:4], [10, 20]]
+    cat.upsert(ids, rng.standard_normal((len(ids), d)).astype(np.float32))
+    cat.compact()
+    with conc.paused():  # queued in the window: they leave as sync's
+        tickets = [conc.submit(q) for q in second]
+    got2 = [conc.result(t, timeout=120) for t in tickets]
+    live_launches = ops.launch_counts()
+    conc.close()
+    epochs = sorted({c[1] for c in conc.chunk_log})
+    check(epochs == [1, 3], f"H.3 live: chunk epochs {epochs}")
+    same_tickets(got1, sync_tickets(before, first), "H.3 live, epoch 1")
+    same_tickets(got2, sync_tickets(cat.engine, second), "H.3 live, epoch 3")
+    check(cat.engine.nns_mesh is mesh, "H.3: the compaction left the mesh")
+    snap = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    try:
+        cat.snapshot(snap)
+        back = LiveCatalog(eng_a.shard(mesh, "banks", query_axis="qp"),
+                           delta_capacity=64)
+        back.restore(snap)
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    check(back.engine.nns_mesh is mesh and back.epoch == cat.epoch,
+          "H.3: the snapshot restored off the mesh")
+    for i, b in enumerate(batches):
+        same_serve(back.engine.serve(b), cat.engine.serve(b),
+                   f"H.3 restored snapshot, batch {i}")
+    # q/s and the stream's host ms a chunk: one warmed server, 3 runs
+    conc = make_server(sharded, "concurrent", max_batch=BATCH, **knobs)
+    conc.serve_many(queries[:BATCH + 37])
+    walls, chunk_ms = [], []
+    for _ in range(3):
+        before_snap = conc.snapshot()
+        t0 = time.perf_counter()
+        conc.serve_many(queries)
+        walls.append(time.perf_counter() - t0)
+        snap_now = conc.snapshot()
+        sent = (snap_now["serving.stream_s.count"]
+                - before_snap["serving.stream_s.count"])
+        chunk_ms.append((snap_now["serving.stream_s.sum"]
+                         - before_snap["serving.stream_s.sum"])
+                        / sent * 1e3)
+    st = conc.stats()
+    conc.close()
+    check(st["n_errors"] == 0 and st["last_error"] is None,
+          f"H.3 timed runs: errors {st['n_errors']}, {st['last_error']}")
+    qps = len(queries) / statistics.median(walls)
+    return ({"queries_per_s": qps, "e1_concurrent_queries_per_s": e1_qps,
+             "wall_ms": [w * 1e3 for w in walls],
+             "stream_ms_per_chunk": statistics.median(chunk_ms),
+             "stream_ms_per_chunk_runs": chunk_ms,
+             "chunks_per_run": sent, "launches": launches,
+             "live_launches": live_launches,
+             "n_items": cat.n_items, "epoch": cat.epoch},
+            add_counts(launches, live_launches))
+
+
 def bank_split(qs, sigs, radius: int, k: int, n_banks: int, summary, ops,
                what: str) -> dict:
     """H.2: `n_banks` banks of `sigs` on one card, no collective: each
@@ -2032,10 +2169,11 @@ def bank_bags(eng_a, batch, mesh, ops) -> dict:
                 10)}
 
 
-def mesh_phase(eng_a, eng_b, inputs, a, b, seed: int, ops,
-               card: str) -> dict:
+def mesh_phase(eng_a, eng_b, inputs, a, b, seed: int, ops, card: str,
+               e1_qps: float) -> dict:
     """Phase H: the multi-GPU RecSys plans over NCCL at world size 1
-    (H.1) and banks on one card without a collective (H.2)."""
+    (H.1), banks on one card without a collective (H.2), and the
+    concurrent front-end's stream over the grid engine (H.3)."""
     import datetime
 
     import torch.distributed as dist
@@ -2069,6 +2207,10 @@ def mesh_phase(eng_a, eng_b, inputs, a, b, seed: int, ops,
                              dtype=torch.int32, device=eng_a.device)
         h["H1"]["gather_call_ms"] = call_ms(
             lambda: all_gather_axis(packed, meshes["banks"][0], "banks"), 50)
+        h["H3"], lc = mesh_stream(eng_a, e1_queries(inputs, seed),
+                                  batches_a[:2], meshes["grid"][0], seed,
+                                  ops, e1_qps)
+        h["launches"] = add_counts(h["launches"], lc)
 
         qa = lsh_signature(eng_a.user_embedding(batches_a[0]),
                            eng_a.lsh_proj)
@@ -2105,6 +2247,21 @@ def mesh_phase(eng_a, eng_b, inputs, a, b, seed: int, ops,
           f" s); one NCCL all-gather of a packed candidate buffer "
           f"{h1['gather_call_ms']:.4f} ms a call; launches "
           f"{h['launches']}", flush=True)
+    h3 = h["H3"]
+    print(f"phase H.3 (the concurrent front-end's stream over A's engine on "
+          f"the 1 x 1 grid, NCCL, world size 1; {card}): E.1's "
+          f"{N_QUERIES_E1} queries bit-equal to sync on the mesh engine, "
+          f"an update and a compaction in the pause window between two "
+          f"halves bit-equal to sync on their epochs, a bank-sharded "
+          f"snapshot restored bit-equal; {h3['queries_per_s']:.0f} q/s "
+          f"(runs {[round(w, 2) for w in h3['wall_ms']]} ms) against E.1's "
+          f"unsharded concurrent {h3['e1_concurrent_queries_per_s']:.0f} "
+          f"q/s; the stream's host ms a chunk (header and broadcast) "
+          f"{h3['stream_ms_per_chunk']:.4f} (median of 3 runs "
+          f"{[round(x, 4) for x in h3['stream_ms_per_chunk_runs']]}, "
+          f"{h3['chunks_per_run']} chunks a run); launches "
+          f"{h3['launches']} (stream), {h3['live_launches']} (live halves)",
+          flush=True)
     for key, v in h["H2"].items():
         if key.startswith("bag"):
             err = v["max_abs_err_vs_one_table"]
@@ -3871,7 +4028,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- phase H: the multi-GPU plans at world size 1, banks on one card ----
-    mesh = mesh_phase(eng_a, eng_b, inputs, a, b, args.seed, ops, card)
+    mesh = mesh_phase(eng_a, eng_b, inputs, a, b, args.seed, ops, card,
+                      e["E1"]["concurrent"]["queries_per_s"])
 
     # -- phase D: Qwen3-8B, full width and depth, prefill and decode --------
     lm_rec, int8_operands = lm_phase(args.seed, device, ops)

@@ -135,13 +135,15 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def save(directory: str | os.PathLike, step: int, tree: Any) -> pathlib.Path:
+def save(directory: str | os.PathLike, step: int, tree: Any, *,
+         collective: bool = False) -> pathlib.Path:
     """Atomic synchronous save of `tree` as step `step`. A sharded tree is
     gathered on every rank, written by rank 0, and every rank returns
-    once it is committed."""
+    once it is committed; so is a tree that every rank of the process
+    group holds alike and saves together (`collective`)."""
     leaves = [(path, _host(leaf)) for path, leaf in _leaves(tree)]
     final = pathlib.Path(directory) / f"step_{step:08d}"
-    if not _sharded(tree):
+    if not (collective or _sharded(tree)):
         return _write(directory, step, leaves)
     if _writer():
         _write(directory, step, leaves)

@@ -27,10 +27,28 @@ signatures, mask and summary a rank. Reads of the global rows go through
 `global_rows` (an all-gather over the bank axis); an update writes the
 rank's bank of the new mask and recomputes its own summary blocks, and a
 compaction re-shards the folded table onto the engine's mesh. Every rank
-applies the same updates in the same order.
+applies the same updates in the same order. Attached to a concurrent
+front-end over a mesh engine, every call that runs a collective or
+publishes (`apply_updates`, `compact`, `refresh_model`, `n_items`,
+`snapshot`, `restore`) runs inside the front-end's pause window
+(`ConcurrentFrontend.paused`), so its collectives never interleave with
+a serve's on any rank.
+
+A snapshot does not depend on the layout that wrote it: it holds the
+engine in its unsharded layout (`unshard`: a bank-sharded engine's
+signatures and mask gathered in bank order, pad rows dropped) and
+restores onto any template, sharded or not. Its leaves are the unsharded
+catalog's after the same churn but for `block_summary`: a bank-sharded
+engine keeps a summary a bank (at its own block rows, or none where the
+banks do not hold whole blocks), so the snapshot holds a summary built
+cold over the gathered rows at the banks' block rows
+(`SUMMARY_BLOCK_ROWS` where they have none). It equals the unsharded
+catalog's where those block rows are the same: a cold build and the
+exact per-block updates agree.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -378,6 +396,26 @@ def compact_engine(engine):
     return out
 
 
+def unshard(engine):
+    """`engine` in its unsharded layout (a collective on a mesh engine:
+    every rank joins): a bank-sharded engine's signatures and mask
+    gathered in bank order with the pad rows dropped, and a block summary
+    built cold over them at the banks' block rows. Nothing is compacted:
+    the base, the delta shard, the tombstones and the hot caches stay as
+    they stand. An unsharded engine comes back as it is."""
+    if engine.nns_mesh is None:
+        return engine
+    n = int(engine.item_table_q.values.shape[0])
+    sigs = global_rows(engine, engine.item_sigs)[:n]
+    mask = (None if engine.item_mask is None
+            else global_rows(engine, engine.item_mask)[:n])
+    return dataclasses.replace(
+        engine, item_sigs=sigs, item_mask=mask,
+        block_summary=build_block_summary(sigs, _summary_rows(engine),
+                                          db_mask=mask),
+        nns_mesh=None, nns_axis=None, nns_query_axis=None)
+
+
 def rebuild_reference(engine):
     """A from-scratch engine over the live engine's final table: the
     bit-match oracle. Base, signatures and mask come from `materialize`,
@@ -508,6 +546,17 @@ class LiveCatalog:
         np.add.at(self.item_freqs, ids, 1)
         self.n_observed += int(ids.size)
 
+    @contextlib.contextmanager
+    def _window(self):
+        """Every attached front-end's pause window (a no-op for those
+        without one), entered in attach order on every rank."""
+        with contextlib.ExitStack() as stack:
+            for server in self._servers:
+                paused = getattr(server, "paused", None)
+                if paused is not None:
+                    stack.enter_context(paused())
+            yield
+
     def _publish(self) -> None:
         if self.registry is not None:
             self.registry.event("publish", epoch=self.epoch,
@@ -520,6 +569,10 @@ class LiveCatalog:
                       delete_ids=None) -> None:
         """Apply one update batch; a full delta forces a compaction first
         (with `auto_compact=False` the `DeltaFullError` propagates)."""
+        with self._window():
+            self._apply_updates(upsert_ids, upsert_rows, delete_ids)
+
+    def _apply_updates(self, upsert_ids, upsert_rows, delete_ids) -> None:
         try:
             engine = engine_apply_updates(self.engine, upsert_ids,
                                           upsert_rows, delete_ids)
@@ -546,14 +599,19 @@ class LiveCatalog:
 
     def refresh_model(self, params) -> None:
         """Publish new model parameters (`engine_refresh_model`)."""
-        self.engine = engine_refresh_model(self.engine, params)
-        self._publish()
+        with self._window():
+            self.engine = engine_refresh_model(self.engine, params)
+            self._publish()
 
     def compact(self) -> float:
         """Fold the delta into a new base epoch and publish it; returns the
         pause in seconds (the fold runs synchronously; buckets queued on
         the old epoch keep their own tensors). Measured frequencies repin
         the hot cache."""
+        with self._window():
+            return self._compact()
+
+    def _compact(self) -> float:
         t0 = time.perf_counter()
         engine = compact_engine(self.engine)
         if self.n_observed:
@@ -587,8 +645,9 @@ class LiveCatalog:
         """Alive catalog size: alive base rows plus live delta rows (the
         two id sets are disjoint: overwritten base rows are tombstoned)."""
         n_base = int(self.engine.item_table_q.values.shape[0])
-        alive = int(global_rows(self.engine,
-                                self.engine.item_mask)[:n_base].sum())
+        with self._window():
+            alive = int(global_rows(self.engine,
+                                    self.engine.item_mask)[:n_base].sum())
         return alive + delta_n_live(self.engine.delta)
 
     def rebuild_reference(self):
@@ -599,25 +658,41 @@ class LiveCatalog:
     # -- persistence ---------------------------------------------------
     def snapshot(self, directory) -> None:
         """Atomic epoch-numbered snapshot of the whole engine (base, delta,
-        tombstones, hot caches) through the checkpointer. A bank-sharded
-        engine is refused: each rank holds only its bank."""
+        tombstones, hot caches, epoch) through the checkpointer, in the
+        unsharded layout whatever the engine's (`unshard`; the module
+        docstring names the leaf that differs). On a mesh engine every
+        rank joins: rank 0 writes, and every rank returns once the epoch
+        is committed."""
         from repro_torch.checkpoint import checkpointer
 
-        if self.engine.nns_axis is not None:
-            raise ValueError("snapshot() of a bank-sharded engine: each "
-                             "rank holds one bank; snapshot an unsharded "
-                             "engine")
-
-        checkpointer.save(directory, self.epoch, self.engine)
+        with self._window():
+            checkpointer.save(directory, self.epoch, unshard(self.engine),
+                              collective=self.engine.nns_mesh is not None)
 
     def restore(self, directory) -> None:
-        """Restore the latest committed snapshot (the current engine is the
-        structural template) and publish it."""
+        """Restore the latest committed snapshot onto the current engine's
+        layout and publish it: the snapshot is read into the unsharded
+        structure of the current engine (the template), its block summary
+        is rebuilt cold at the template's block rows, and on a mesh engine
+        it is re-sharded onto the template's mesh, bank axis and query
+        axis. So a snapshot of any layout restores onto any other."""
         from repro_torch.checkpoint import checkpointer
 
         step = checkpointer.latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no committed snapshot in {directory}")
-        self.engine = checkpointer.restore(directory, step, self.engine)
-        self.epoch = step
-        self._publish()
+        tmpl = self.engine
+        with self._window():
+            engine = checkpointer.restore(directory, step, dataclasses.replace(
+                tmpl, block_summary=None, nns_mesh=None, nns_axis=None,
+                nns_query_axis=None))
+            engine = dataclasses.replace(
+                engine, block_summary=build_block_summary(
+                    engine.item_sigs, _summary_rows(tmpl),
+                    db_mask=engine.item_mask))
+            if tmpl.nns_mesh is not None:
+                engine = engine.shard(tmpl.nns_mesh, tmpl.nns_axis,
+                                      query_axis=tmpl.nns_query_axis)
+            self.engine = engine
+            self.epoch = step
+            self._publish()

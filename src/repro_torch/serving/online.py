@@ -16,7 +16,13 @@ catalog (mirrors `repro/serving/online.py`).
   * every publication goes through the catalog to `server.swap_engine`,
     which on the concurrent front-end takes the drain thread's serve
     lock: a drain chunk is served by one engine, and nothing a queued
-    bucket reads is changed.
+    bucket reads is changed. Over a mesh engine of several ranks the
+    fold's and the refresh's catalog calls (their collectives and the
+    swap) run inside the front-end's pause window
+    (`ConcurrentFrontend.paused`), which `LiveCatalog` opens for every
+    attached front-end: every rank's training thread folds in the same
+    order, and the first chunk after the window serves the new epoch on
+    every rank. The step itself is unsharded and runs no collective.
 
 The trainer owns its parameters. It clones them at construction, and its
 step and AdamW are out of place, so a published engine never holds a

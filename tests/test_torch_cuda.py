@@ -1083,6 +1083,65 @@ def test_nccl_mesh_engine_serves_like_the_local_engine(cuda, nccl,
                 cat.rebuild_reference().serve(batch), blocks=False)
 
 
+@pytest.mark.parametrize("scan_block", [None, 128])
+def test_nccl_concurrent_stream_serves_like_sync(cuda, nccl, scan_block,
+                                                 tmp_path):
+    """The concurrent front-end on a world-size-1 NCCL mesh engine (the
+    1 x 1 grid): its stream broadcasts each chunk from the drain thread
+    as CUDA tensors, and it serves sync's bits; a LiveCatalog update and
+    a compaction inside the pause window between two staged halves, each
+    half sync's bits on its epoch; a bank-sharded snapshot restores
+    bit-equal."""
+    from repro_torch.utils import make_mesh
+
+    eng, queries = _serving_setup(cuda, scan_block)
+    grid = make_mesh((1, 1), ("qp", "banks"))
+    sharded = eng.shard(grid, "banks", query_axis="qp")
+    sync = make_server(sharded, "sync", max_batch=SERVE_BATCH)
+    want = sync.serve_many(queries)
+    sync.close()
+    conc = make_server(sharded, "concurrent", max_batch=SERVE_BATCH,
+                       queue_depth=None, autostart=False)
+    tickets = [conc.submit(q) for q in queries]
+    conc.start()
+    _served_equal([conc.result(t, timeout=60) for t in tickets], want)
+    conc.close()
+    assert sum(c[2] for c in conc.chunk_log) == len(queries)
+    assert {c[1] for c in conc.chunk_log} == {0}
+
+    cat = LiveCatalog(sharded, delta_capacity=32)
+    conc = make_server(cat.engine, "concurrent", max_batch=SERVE_BATCH,
+                       queue_depth=None, autostart=False)
+    cat.attach(conc)
+    before = cat.engine
+    first, second = queries[:SERVE_BATCH], queries[SERVE_BATCH:]
+    tickets = [conc.submit(q) for q in first]
+    conc.start()
+    got1 = [conc.result(t, timeout=60) for t in tickets]
+    rng = np.random.default_rng(3)
+    cat.upsert(np.arange(2000, 2008),
+               rng.standard_normal((8, 32)).astype(np.float32))
+    cat.compact()
+    with conc._cv:  # one chunk: sync's buckets
+        tickets = [conc.submit(q) for q in second]
+    got2 = [conc.result(t, timeout=60) for t in tickets]
+    conc.close()
+    assert [c[1] for c in conc.chunk_log] == [1, 3]
+    _served_equal(got1, make_server(before, "sync", max_batch=SERVE_BATCH
+                                    ).serve_many(first))
+    _served_equal(got2, make_server(cat.engine, "sync",
+                                    max_batch=SERVE_BATCH
+                                    ).serve_many(second))
+    cat.snapshot(tmp_path / "snap")
+    back = LiveCatalog(eng.shard(grid, "banks", query_axis="qp"))
+    back.restore(tmp_path / "snap")
+    assert back.engine.nns_mesh is grid and back.epoch == cat.epoch
+    batch = {k: np.stack([q[k] for q in queries[:SERVE_BATCH]])
+             for k in queries[0]}
+    _same_serve(back.engine.serve(batch), cat.engine.serve(batch),
+                blocks=False)
+
+
 @pytest.mark.parametrize("n,n_banks,block_rows", [(65536, 4, 4096),
                                                   (3000, 3, None),
                                                   (3000, 7, None)])

@@ -14,9 +14,10 @@ every rank:
 - serves a 37-query stream through the sync front-end and the pipelined
   one (whose `coalesce` defaults to the query axis' size) bit-equal to the
   unsharded engine's front-ends (the pipelined one at the same coalesce);
-- finds the concurrent front-end refused with `ServerConfigError` over
-  more than one rank (and serving sync's bits over one), and
-  `TieredCatalog` refused;
+- serves the stream through the concurrent front-end (rank 0 drains,
+  the other ranks follow its stream) bit-equal to the sync front-end,
+  every rank's counters equal to sync's, and finds `TieredCatalog`
+  refused;
 - runs a seeded churn through `LiveCatalog` (new ids, re-embedded hot and
   cold rows, deletes, a delete and re-add, a forced compaction that
   re-shards the folded table, a last compaction), each step serving
@@ -316,17 +317,22 @@ def rank_engine(inputs: dict, world: int) -> dict:
                     _same_tickets(tickets, ref.serve_many(stream),
                                   f"{key} {mode}")
                     ref.close()
-            if world > 1:
-                with pytest.raises(ServerConfigError, match="ranks"):
-                    make_server(eng, "concurrent", max_batch=B)
-            else:
-                conc = make_server(eng, "concurrent", max_batch=B,
-                                   queue_depth=None, autostart=False)
+            conc = make_server(eng, "concurrent", max_batch=B,
+                               queue_depth=None, autostart=False)
+            assert conc.leader == checker
+            if checker:
                 tickets = [conc.submit(q) for q in stream]
                 conc.start()
                 _same_tickets([conc.result(t, timeout=60.0)
                                for t in tickets], got, f"{key} concurrent")
-                conc.close()
+            else:
+                with pytest.raises(ServerConfigError, match="rank 0"):
+                    conc.submit(stream[0])
+            conc.close()
+            cst = conc.stats()
+            assert [cst[k] for k in ("n_served", "n_padded", "n_batches",
+                                     "cache_hits", "cache_lookups")] \
+                == out[f"{key}/sync_stats"].tolist(), key
             with tempfile.TemporaryDirectory() as d:
                 with pytest.raises(ValueError, match="unsharded"):
                     TieredCatalog.from_engine(eng, d)
@@ -491,8 +497,8 @@ def test_mesh_engine_on_gloo_ranks(world, reference, tmp_path):
 
 
 def test_mesh_engine_one_rank(world1, reference):
-    """World size 1 in this process: the same run, and the concurrent
-    front-end serves sync's bits."""
+    """World size 1 in this process: the same run (the concurrent
+    front-end on its stream of one rank)."""
     inputs, want = reference
     check_against_reference(rank_engine(inputs, 1), want, 1)
 
@@ -506,8 +512,12 @@ def test_shard_refuses_bad_arguments(world1, reference, tmp_path):
     assert sharded.block_summary is not None  # 768 rows, 128 a block
     with pytest.raises(ValueError, match="unsharded"):
         sharded.shard(mesh, "banks")
-    with pytest.raises(ValueError, match="bank-sharded"):
-        LiveCatalog(sharded).snapshot(tmp_path)
+    # a bank-sharded snapshot is written in the unsharded layout
+    LiveCatalog(sharded).snapshot(tmp_path)
+    back = LiveCatalog(eng)
+    back.restore(tmp_path)
+    assert back.engine.nns_mesh is None
+    assert torch.equal(back.engine.item_sigs, eng.item_sigs)
     meta = dataclasses.replace(eng, item_sigs=eng.item_sigs.to("meta"))
     with pytest.raises(ValueError, match="cpu mesh"):
         meta.shard(mesh, "banks")
