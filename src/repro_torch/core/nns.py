@@ -6,6 +6,9 @@ forces dense, > 0 forces streaming), and the block summaries that let the
 streaming plan skip blocks whose sound Hamming lower bound exceeds the
 radius. Both plans, pruned or not, return the same bits: candidates sorted
 by (distance, row), padded (-1, BIG_DIST), and the count of all matches.
+Each plan runs inside an `obs.span` (`nns.dense` > `nns.dense.select`,
+`nns.stream` > `nns.stream.bounds`), so a profiler's trace says which plan
+ran and what its selection and its prune bounds cost on the device.
 
 The live catalog's scan (`delta_aware_nns`): the read-only base scans
 through its plan with tombstoned rows masked (`db_mask`), the bounded
@@ -45,6 +48,7 @@ from repro_torch.kernels.streaming_nns import (
     BIG_DIST,
     merge_candidate_buffers,
 )
+from repro_torch.obs import span
 from repro_torch.utils import (
     all_gather_axis,
     cdiv,
@@ -280,20 +284,33 @@ def fixed_radius_nns(
     block = DEFAULT_SCAN_BLOCK if not scan_block else scan_block
 
     if use_stream:
-        prune_blocks = blocks_touched = block_rows = None
-        if summary is not None and prune is not False:
-            prune_blocks, blocks_touched = _prune_mask(
-                query_sigs, summary, radius)
-            block_rows = summary.block_rows
-        indices, distances, counts = ops.streaming_nns(
-            query_sigs, db_sigs, radius=radius,
-            max_candidates=max_candidates, scan_block=block, n_valid=n_valid,
-            superblock=superblock, db_mask=db_mask,
-            prune_blocks=prune_blocks, prune_block_rows=block_rows)
+        with span("nns.stream"):
+            prune_blocks = blocks_touched = block_rows = None
+            if summary is not None and prune is not False:
+                with span("nns.stream.bounds"):
+                    prune_blocks, blocks_touched = _prune_mask(
+                        query_sigs, summary, radius)
+                block_rows = summary.block_rows
+            indices, distances, counts = ops.streaming_nns(
+                query_sigs, db_sigs, radius=radius,
+                max_candidates=max_candidates, scan_block=block,
+                n_valid=n_valid, superblock=superblock, db_mask=db_mask,
+                prune_blocks=prune_blocks, prune_block_rows=block_rows)
         return NNSResult(indices=indices, distances=distances, counts=counts,
                          blocks_touched=blocks_touched)
 
-    d = ops.hamming_distances(query_sigs, db_sigs)  # (q, n)
+    with span("nns.dense"):
+        d = ops.hamming_distances(query_sigs, db_sigs)  # (q, n)
+        with span("nns.dense.select"):
+            return _dense_select(d, radius, max_candidates, db_mask,
+                                 n_valid)
+
+
+def _dense_select(d, radius, max_candidates, db_mask, n_valid) -> NNSResult:
+    """`fixed_radius_nns`' dense plan after the (q, n) distances `d`: the
+    rows within `radius`, their count, and the first `max_candidates` by
+    (distance, row)."""
+    n = d.shape[1]
     within = d <= radius
     if n_valid is not None:
         rows = torch.arange(n, device=d.device)

@@ -1,7 +1,8 @@
 """Observability: the unified telemetry layer for the serving stack.
 
-A copy of `repro/obs` (numpy and the standard library only): the port's
-front-ends report into the same registry and span schema.
+A copy of `repro/obs`: the port's front-ends report into the same
+registry and span schema. Beyond the copy, `span` names the serve step's
+stages and NNS plans in a `torch.profiler` trace (docs/OBSERVABILITY.md).
 
 One `MetricsRegistry` per server (or one shared across a serving stack)
 is the single home for every counter the subsystems used to keep ad-hoc
@@ -24,6 +25,7 @@ from repro_torch.obs.tracing import (
     STAGES,
     TicketTrace,
     dump_trace,
+    span,
     stage_durations,
     trace_record,
     well_ordered,
@@ -36,6 +38,7 @@ __all__ = [
     "TicketTrace",
     "bucket_upper_bounds",
     "dump_trace",
+    "span",
     "stage_durations",
     "trace_record",
     "well_ordered",

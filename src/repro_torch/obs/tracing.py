@@ -1,6 +1,6 @@
 """Per-request stage spans: the ticket lifecycle as host timestamps.
 
-A copy of `repro/obs/tracing.py` (the standard library only).
+A copy of `repro/obs/tracing.py`, and `span`, which is the port's own.
 
 iMARS Fig. 3 is a *pipeline*: lookups feed the filtering NNS which feeds
 the ranking crossbars, and the paper's claims are per-stage latency
@@ -16,7 +16,8 @@ outcomes — carries a **span chain**: ``((stage, t), ...)`` with
     bucket    the query left its queue and was assigned a batch bucket
     dispatch  the jitted stage pipeline was dispatched to the device
     scan      the filtering NNS scan completed (sync mode observes the
-              real device boundary via an intermediate block; pipelined
+              real device boundary through an event recorded between the
+              scan and the rank stage, once both are queued; pipelined
               mode retires scan+rank together at the ring sync, so scan
               carries the whole device wait and rank is ~0 there)
     rank      the ranked items were materialized on the host
@@ -31,11 +32,21 @@ A chain may be a **subsequence** of `STAGES` (shed: submit/admit/resolve;
 error: submit/admit/resolve) but is always non-empty when tracing is on,
 starts at ``submit``, ends at ``resolve``, and is non-decreasing in time
 (`well_ordered` checks all of it; tested in tests/test_obs.py).
+
+Inside the serve step the port names its work with `span`: nested ranges
+on the host thread (`serve` > `serve.lookup` / `serve.scan` / `serve.rank`,
+`nns.dense` > `nns.dense.select`, `nns.stream` > `nns.stream.bounds`).
+They are `torch.profiler.record_function` ranges while a profiler records,
+so the profiler links every device operation to the span it was launched
+in, and one shared no-op context otherwise (one check a span).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import NamedTuple
+
+import torch
 
 # canonical stage order; every span chain's names are a subsequence
 STAGES = ("submit", "admit", "bucket", "dispatch", "scan", "rank",
@@ -112,3 +123,21 @@ def dump_trace(trace, path) -> int:
             f.write(json.dumps(trace_record(rec), sort_keys=True) + "\n")
             n += 1
     return n
+
+
+# what `span` hands back while no profiler records: one context, reused
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming the work inside it `name` in a profiler's trace.
+
+    While `torch.profiler` records, a `record_function(name)` range, on the
+    same host clock as the trace's device events, which the profiler links
+    to it by their launches; otherwise the shared no-op context, at the
+    cost of one check (a `record_function` with no profiler recording
+    would cost a call into the dispatcher's callbacks every time).
+    """
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)

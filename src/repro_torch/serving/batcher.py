@@ -3,7 +3,7 @@
 Ported from `repro/serving/batcher.py`. Each submitted query is one user
 hitting the recommendation fabric (paper Fig. 3). The batcher accumulates
 queries, pads them to a small set of bucket shapes (powers of two up to
-`max_batch`), and feeds each bucket through `serve_step`:
+`max_batch`), and feeds each bucket through the serve step's three stages:
 
     queue  ->  (1a/1b*) UIET/ItET lookups + pooling   (one grouped
                         embedding-pool launch through the hot caches)
@@ -49,8 +49,10 @@ from repro_torch.obs import MetricsRegistry, TicketTrace
 from repro_torch.serving.hot_cache import CacheStats
 from repro_torch.serving.recsys_engine import (
     RecSysEngine,
+    lookup_step,
     n_summary_blocks,
-    serve_step,
+    rank_stage_step,
+    scan_step,
 )
 from repro_torch.serving.server import (
     STATUS_OK,
@@ -119,6 +121,16 @@ class HostCopy:
         if self._event is not None:
             self._event.synchronize()
         return [h.numpy().copy() for h in self._host]
+
+
+def _scan_event(indices: torch.Tensor):
+    """An event recorded on the current stream after the scan that made
+    `indices`; None on the CPU, where the scan has already run."""
+    if indices.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(indices.device))
+    return event
 
 
 @dataclasses.dataclass
@@ -254,9 +266,10 @@ class MicroBatcher:
     # ------------------------------------------------------------------
     def flush(self) -> None:
         """Drain the queue through bucket-shaped serve steps, one bucket
-        at a time: each waits for its scan (when tracing, to stamp the
-        scan -> rank boundary) and its results before the next is stacked.
-        Pruned scans feed their blocks-touched counts into the registry.
+        at a time: each waits for its results before the next is stacked.
+        When tracing, an event recorded between the scan and the rank
+        stage (both queued first) stamps the scan -> rank boundary. Pruned
+        scans feed their blocks-touched counts into the registry.
         """
         while self._pending:
             chunk = self._pending[: self.max_batch]
@@ -264,11 +277,16 @@ class MicroBatcher:
             bucket = next(b for b in self.buckets if b >= len(chunk))
             t_bucket = time.perf_counter() if self.trace else 0.0
             batch = self._stack([q for _, q in chunk], bucket)
-            items, top, nns, self._stats = serve_step(
-                self.engine, batch, self._stats)
+            # serve_step, stage by stage
+            u, pooled, stats = lookup_step(self.engine, batch, self._stats)
+            nns = scan_step(self.engine, u)
+            scanned = _scan_event(nns.indices) if self.trace else None
+            items, top, self._stats = rank_stage_step(
+                self.engine, batch, nns.indices, u, pooled, stats)
             if self.trace:
                 t_dispatch = time.perf_counter()
-                HostCopy([nns.indices]).numpy()
+                if scanned is not None:
+                    scanned.synchronize()
                 t_scan = time.perf_counter()
             items, scores = HostCopy([items, top.scores]).numpy()
             if self.trace:

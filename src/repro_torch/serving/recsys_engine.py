@@ -37,15 +37,19 @@ buckets already queued on it.
 
 The same three stages, dispatched one by one (`lookup_step`, `scan_step`,
 `rank_stage_step`), are what the pipelined front-end
-(`serving/async_server.py`) queues for each bucket. Every `ServeResult`
-carries the paper's cost model for one query (`query_cost`): the FeFET
-fabric's analytic latency and energy, not a measurement of this device.
+(`serving/async_server.py`) queues for each bucket. `serve` and the three
+stages run inside `obs.span`s (`serve`, `serve.lookup`, `serve.scan`,
+`serve.rank`), so a `torch.profiler` trace splits the device's time by
+stage. Every `ServeResult` carries the paper's cost model for one query
+(`query_cost`): the FeFET fabric's analytic latency and energy, not a
+measurement of this device, computed once for each candidate count.
 `hit_rate` is the YoutubeDNN HR@k evaluation in the paper's three
 accuracy configurations.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -72,6 +76,7 @@ from repro_torch.core.quantization import (
 from repro_torch.core.topk import TopKResult, threshold_topk
 from repro_torch.kernels import ops
 from repro_torch.models import recsys as rs
+from repro_torch.obs import span
 from repro_torch.serving.hot_cache import (
     CacheStats,
     HotRowCache,
@@ -282,8 +287,10 @@ class RecSysEngine:
         the NNS candidates, the paper's cost model for one query
         (`query_cost`) and this batch's CacheStats.
         """
-        items, top, nns, stats = serve_step(
-            self, self.batch_to_device(batch), CacheStats.zero(self.device))
+        with span("serve"):
+            items, top, nns, stats = serve_step(
+                self, self.batch_to_device(batch),
+                CacheStats.zero(self.device))
         return ServeResult(items=items, topk=top, nns=nns,
                            cost=self.query_cost(), stats=stats)
 
@@ -291,9 +298,16 @@ class RecSysEngine:
         """The iMARS fabric's latency and energy for one query, from the
         paper's analytic model (`cm.end_to_end_movielens`) at this engine's
         candidate count; not a measurement of this device."""
-        e2e = cm.end_to_end_movielens(n_candidates=self.n_candidates)
-        return cm.OpCost(latency_ns=e2e["imars_latency_us"] * 1e3,
-                         energy_pj=e2e["imars_energy_uj"] * 1e6)
+        return _modeled_cost(self.n_candidates)
+
+
+@functools.cache
+def _modeled_cost(n_candidates: int) -> cm.OpCost:
+    """`RecSysEngine.query_cost`, computed once for each candidate count
+    (an `OpCost` is frozen, so every engine may share it)."""
+    e2e = cm.end_to_end_movielens(n_candidates=n_candidates)
+    return cm.OpCost(latency_ns=e2e["imars_latency_us"] * 1e3,
+                     energy_pj=e2e["imars_energy_uj"] * 1e6)
 
 
 # ---------------------------------------------------------------------------
@@ -464,13 +478,15 @@ def serve_step(engine: RecSysEngine, batch: dict, stats: CacheStats):
 def _lookup_stage(engine: RecSysEngine, batch: dict, stats: CacheStats):
     """Stage 1 — ET lookups + pooling + filtering DNN -> (u, pooled,
     stats')."""
-    u, pooled, st = _features(engine, batch)
-    return u, pooled, stats + st
+    with span("serve.lookup"):
+        u, pooled, st = _features(engine, batch)
+        return u, pooled, stats + st
 
 
 def _scan_stage(engine: RecSysEngine, u: torch.Tensor) -> NNSResult:
     """Stage 2 — LSH-sign u and run the filtering NNS."""
-    return _nns(engine, lsh_signature(u, engine.lsh_proj))
+    with span("serve.scan"):
+        return _nns(engine, lsh_signature(u, engine.lsh_proj))
 
 
 def _rank_stage(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
@@ -478,10 +494,11 @@ def _rank_stage(engine: RecSysEngine, batch: dict, cand: torch.Tensor,
                 sides=None):
     """Stage 3 — rank candidates, pick the final items -> (final, topk,
     stats')."""
-    top, st = _rank(engine, batch, cand, u, pooled, sides)
-    picked = torch.gather(cand, 1, top.indices.clamp(min=0).long())
-    final = torch.where(top.indices >= 0, picked, -1)
-    return final, top, stats + st
+    with span("serve.rank"):
+        top, st = _rank(engine, batch, cand, u, pooled, sides)
+        picked = torch.gather(cand, 1, top.indices.clamp(min=0).long())
+        final = torch.where(top.indices >= 0, picked, -1)
+        return final, top, stats + st
 
 
 # the pipeline split at its stage boundaries, for pipelined serving
